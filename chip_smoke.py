@@ -1,0 +1,485 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases (any failure makes the exit code non-zero):
+  1. the card (nvidia-smi name and power limit), torch and CUDA versions,
+     and the build of the CUDA kernels from piper_tpu_torch/csrc/;
+  2. each kernel against its plain PyTorch version on the card, at the
+     medium voice's shapes with ragged lengths, in float32 and bfloat16,
+     with its time beside the plain version's, a cuDNN composition of
+     the same stage and the card's bound;
+  3. the main path through the CLI entry point
+     (python -m piper_tpu_torch --batch --seed 1 on a random-weight
+     medium voice): WAV checks, determinism, a row alone vs in a batch,
+     the kernels' launch counts, the time-major generator against the
+     plain generator, the card against the CPU on a small input, and the
+     speed of a warm batch;
+  4. one JSON line of per-kernel numbers, then the device line.
+
+Needs one CUDA card; prints no result and exits non-zero without one.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import io
+import json
+import math
+import subprocess
+import sys
+import tempfile
+import time
+import wave
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+# Published dense peaks (NVIDIA data sheets): (bf16 tensor FLOP/s,
+# float32 FLOP/s without tensor cores, memory bytes/s).
+PEAKS = {
+    "PCIe": (756e12, 51e12, 2.0e12),
+    "NVL": (835e12, 60e12, 3.9e12),
+    "SXM": (989e12, 67e12, 3.35e12),
+}
+# (atol, rtol) of a kernel against its plain version on the card.
+# float32: both accumulate in float32, only the order of the sums
+# differs. bfloat16: both round every conv output and residual to bf16
+# at the same points, but a sum that lands near a rounding boundary may
+# round the other way (one bf16 ulp is 2^-8 relative) and the chain of
+# 6 convs per resblock carries such flips on.
+TOL = {"float32": (1e-4, 1e-4), "bfloat16": (3e-2, 3e-2)}
+
+FAILURES = []
+
+
+def check(ok: bool, what: str) -> None:
+    print(("ok   " if ok else "FAIL ") + what, flush=True)
+    if not ok:
+        FAILURES.append(what)
+
+
+def peaks_for(name: str):
+    for key, val in PEAKS.items():
+        if key in name:
+            return key, val
+    return "SXM", PEAKS["SXM"]
+
+
+def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+# ---------------------------------------------------------------------------
+# Phase 2 helpers: medium-voice stage inputs and the cuDNN compositions
+# ---------------------------------------------------------------------------
+
+
+def stage_inputs(cfg, frames, dtype, seed):
+    """Stage 0's mrf_fused input (B, 128, 8F) and its valid samples per
+    row, at these frame lengths (F = the longest), on the card."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    b, f = len(frames), max(frames)
+    u0 = cfg.upsample_rates[0]
+    t0 = f * u0
+    lens0 = torch.tensor(frames, dtype=torch.int32) * u0
+    valid = (torch.arange(t0)[None, :] < lens0[:, None])[:, None, :]
+    c0 = cfg.upsample_initial_channel // 2
+    x0 = torch.randn((b, c0, t0), generator=g) * valid
+    return x0.to("cuda", dtype), lens0.cuda()
+
+
+def lib_mrf(blocks, x, lens, cfg):
+    """cuDNN composition of one MRF stage, (B, C, T) in and out."""
+    import torch
+    import torch.nn.functional as F
+
+    t = x.shape[-1]
+    mask = (torch.arange(t, device=x.device)[None, :] < lens[:, None])[:, None, :].to(x.dtype)
+    xs = None
+    for j, bp in enumerate(blocks):
+        k = cfg.resblock_kernel_sizes[j]
+        h = x * mask
+        for cp, d in zip(bp["convs"], cfg.resblock_dilation_sizes[j]):
+            w = cp["w"].to(x.dtype).permute(2, 1, 0)
+            a = F.leaky_relu(h, 0.1) * mask
+            h = F.conv1d(a, w, cp["b"].to(x.dtype), padding=(k * d - d) // 2, dilation=d) + h
+        h = h * mask
+        xs = h if xs is None else xs + h
+    return xs / len(blocks)
+
+
+def lib_stage(up, blocks, wpost, x, lens_out, u, k, cfg):
+    """cuDNN composition of one upsample stage in interleaved time:
+    (B, C_in, T_in) -> (B, C_out, T_in*u), or (B, T_in*u) with wpost."""
+    import torch
+    import torch.nn.functional as F
+
+    from piper_tpu_torch.ops.nn import torch_conv_transpose_weight
+
+    t_in = x.shape[-1]
+    m_in = (torch.arange(t_in, device=x.device)[None, :] < (lens_out // u)[:, None])[:, None]
+    y = F.leaky_relu(x * m_in, 0.1)
+    y = F.conv_transpose1d(
+        y, torch_conv_transpose_weight(up["w"].to(x.dtype)), up["b"].to(x.dtype),
+        stride=u, padding=(k - u) // 2,
+    )
+    y = lib_mrf(blocks, y, lens_out, cfg)
+    if wpost is None:
+        return y
+    t = y.shape[-1]
+    m = (torch.arange(t, device=x.device)[None, :] < lens_out[:, None])[:, None].to(x.dtype)
+    y = F.leaky_relu(y, 0.01) * m
+    return (torch.tanh(F.conv1d(y, wpost.to(x.dtype).permute(2, 1, 0), padding=3)) * m)[:, 0]
+
+
+def work_mrf(cfg, c, n_valid):
+    """FLOPs of one MRF stage over n_valid output samples (mask-aware)."""
+    taps = sum(k * len(ds) for k, ds in zip(cfg.resblock_kernel_sizes, cfg.resblock_dilation_sizes))
+    return 2 * taps * c * c * n_valid
+
+
+def phase_kernels(cfg, params_np, peaks):
+    """Each kernel against its plain version at the medium voice's
+    shapes; returns the per-kernel numbers of the main path's dtype."""
+    import torch
+
+    from piper_tpu_torch.models.vits import generator as G
+    from piper_tpu_torch.ops.cuda import vocoder as V
+    from piper_tpu_torch.runtime.voice import _fp32_exact
+    from piper_tpu_torch.weights.bridge import params_from_jax
+
+    bf16_peak, f32_peak, bw = peaks
+    ks = tuple(cfg.resblock_kernel_sizes)
+    ds = tuple(tuple(d) for d in cfg.resblock_dilation_sizes)
+    rb = cfg.resblock
+    frames = [403, 396, 5]  # F not a multiple of any tile; ragged rows
+    results = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        atol, rtol = TOL[dname]
+        dec = params_from_jax(params_np, cfg, "cuda", dtype)["dec"]
+        tm = G.prepare_tm(dec, cfg, dtype)
+        x0, lens0 = stage_inputs(cfg, frames, dtype, seed=11)
+        b, esize = x0.shape[0], x0.element_size()
+        ctx = _fp32_exact() if dtype == torch.float32 else contextlib.nullcontext()
+        with ctx, torch.inference_mode():
+            # --- mrf_fused, stage 0 ---
+            pw, pb = tm["mrf"][0]
+            kw = dict(kernel_sizes=ks, dilation_sizes=ds, resblock_type=rb)
+            got = V.mrf_fused(x0, lens0, pw, pb, **kw)
+            ref = V.mrf_fused_plain(x0, lens0, pw, pb, **kw)
+            torch.cuda.synchronize()
+            err0 = (got.float() - ref.float()).abs().max().item()
+            ok0 = bool(torch.allclose(got.float(), ref.float(), atol=atol, rtol=rtol))
+            check(ok0, f"mrf_fused stage 0 {dname}: max_abs_err {err0:.3e} (atol {atol}, rtol {rtol})")
+            ms0 = time_ms(lambda: V.mrf_fused(x0, lens0, pw, pb, **kw))
+            plain0 = time_ms(lambda: V.mrf_fused_plain(x0, lens0, pw, pb, **kw), reps=3)
+            lib0 = time_ms(lambda: lib_mrf(dec["resblocks"][0], x0, lens0, cfg))
+            c0 = x0.shape[1]
+            flops0 = work_mrf(cfg, c0, int(lens0.sum()))
+            bytes0 = 2 * x0.numel() * esize + pw.numel() * esize + pb.numel() * 4 + 4 * b
+            # --- fused_upsample_mrf, stage 1 alone and stages 1 -> 2 ---
+            x1 = got.contiguous()
+            u1, k1 = cfg.upsample_rates[1], cfg.upsample_kernel_sizes[1]
+            u2, k2 = cfg.upsample_rates[2], cfg.upsample_kernel_sizes[2]
+            q1 = G._tm_phase_plan(k1, u1)[0]
+            q2 = G._tm_phase_plan(k2, u2)[0]
+            lens1, lens2 = lens0 * u1, lens0 * u1 * u2
+            w1, w2 = tm["mrf"][1], tm["mrf"][2]
+
+            def stage1(fn, x):
+                return fn(x, lens1, tm["ups"][1], tm["ups_b"][1], w1[0], w1[1], None,
+                          u=u1, u_in=1, q0=q1, post=False, **kw)
+
+            def stage2(fn, y):
+                return fn(y, lens2, tm["ups"][2], tm["ups_b"][2], w2[0], w2[1], tm["post"],
+                          u=u2, u_in=u1, q0=q2, post=True, **kw)
+
+            y_k = stage1(V.fused_upsample_mrf, x1)
+            y_p = stage1(V.fused_upsample_mrf_plain, x1)
+            torch.cuda.synchronize()
+            err1 = (y_k.float() - y_p.float()).abs().max().item()
+            ok1 = bool(torch.allclose(y_k.float(), y_p.float(), atol=atol, rtol=rtol))
+            check(ok1, f"fused_upsample_mrf stage 1 {dname}: max_abs_err {err1:.3e}")
+            w_k = stage2(V.fused_upsample_mrf, y_k)
+            w_p = stage2(V.fused_upsample_mrf_plain, y_p)
+            torch.cuda.synchronize()
+            err2 = (w_k.float() - w_p.float()).abs().max().item()
+            ok2 = bool(torch.allclose(w_k.float(), w_p.float(), atol=atol, rtol=rtol))
+            check(ok2, f"fused_upsample_mrf stages 1->2 {dname}: max_abs_err {err2:.3e}")
+            ms1 = time_ms(lambda: stage1(V.fused_upsample_mrf, x1))
+            ms2 = time_ms(lambda: stage2(V.fused_upsample_mrf, y_k))
+            plain12 = time_ms(lambda: stage2(V.fused_upsample_mrf_plain, stage1(V.fused_upsample_mrf_plain, x1)), reps=3)
+            lib12 = time_ms(lambda: lib_stage(
+                dec["ups"][2], dec["resblocks"][2], dec["conv_post"]["w"],
+                lib_stage(dec["ups"][1], dec["resblocks"][1], None, x1, lens1, u1, k1, cfg),
+                lens2, u2, k2, cfg))
+            c1, c2 = c0 // 2, c0 // 4
+            n1, n2 = int(lens1.sum()), int(lens2.sum())
+            flops12 = (2 * (k1 // u1) * c0 * c1 * n1 + work_mrf(cfg, c1, n1)
+                       + 2 * (k2 // u2) * c1 * c2 * n2 + work_mrf(cfg, c2, n2) + 2 * 7 * c2 * n2)
+            bytes12 = (x1.numel() + 2 * y_k.numel() + w_k.numel() + tm["ups"][1].numel()
+                       + tm["ups"][2].numel() + w1[0].numel() + w2[0].numel()
+                       + tm["post"].numel()) * esize + 4 * (w1[1].numel() + w2[1].numel() + c1 + c2)
+        peak = f32_peak if dtype == torch.float32 else bf16_peak
+        for kname, ms, plain, lib, flops, nbytes, err, src, rep in (
+            ("mrf_fused", ms0, plain0, lib0, flops0, bytes0, err0,
+             "piper_tpu_torch/csrc/mrf_fused.cu", "piper_tpu/ops/pallas/vocoder.py:286"),
+            ("fused_upsample_mrf", ms1 + ms2, plain12, lib12, flops12, bytes12, max(err1, err2),
+             "piper_tpu_torch/csrc/fused_upsample_mrf.cu", "piper_tpu/ops/pallas/vocoder.py:693"),
+        ):
+            t_ops, t_bytes = flops / peak * 1e3, nbytes / bw * 1e3
+            row = {
+                "name": kname, "route": "cuda", "source": src, "replaces": rep,
+                "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                "bound_ms": max(t_ops, t_bytes),
+                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                "library_ms": lib, "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
+            }
+            print(f"{kname} {dname} (B={b}, frames {frames}): kernel {ms:.3f} ms, "
+                  f"plain {plain:.3f} ms, cuDNN composition {lib:.3f} ms, bound "
+                  f"{row['bound_ms']:.4f} ms ({row['bound_by']}; {flops / 1e9:.2f} GFLOP, "
+                  f"{nbytes / 1e6:.2f} MB), {flops / ms / 1e9:.1f} TFLOP/s achieved"
+                  + (f" (stage 1 {ms1:.3f} ms + stage 2 {ms2:.3f} ms)" if kname != "mrf_fused" else ""),
+                  flush=True)
+            results[(kname, dname)] = row
+    return results
+
+
+# ---------------------------------------------------------------------------
+# Phase 3: the main path through the CLI entry point
+# ---------------------------------------------------------------------------
+
+TEXTS = [
+    "The quick brown fox jumps over the lazy dog.",
+    "A port runs on the card now. It has two kernels.",
+    "Short one.",
+    "Speech synthesis on a GPU, sentence by sentence, with a fixed seed.",
+]
+
+
+def run_cli(argv, lines):
+    """python -m piper_tpu_torch, in this process (so the launch counts
+    are visible here), with `lines` on stdin."""
+    from piper_tpu_torch.__main__ import main as cli_main
+
+    saved = sys.stdin
+    sys.stdin = io.StringIO("".join(line + "\n" for line in lines))
+    try:
+        cli_main(argv)
+    finally:
+        sys.stdin = saved
+
+
+def read_wav(path):
+    import numpy as np
+
+    raw = Path(path).read_bytes()
+    with wave.open(str(path), "rb") as w:
+        sr, n = w.getframerate(), w.getnframes()
+        pcm = np.frombuffer(w.readframes(n), np.int16)
+    return raw, sr, pcm
+
+
+def make_voice(tmp: Path):
+    """Random-weight medium voice (.npz + .json, text phonemes)."""
+    from piper_tpu_torch.config import ModelConfig
+    from piper_tpu_torch.models.vits.model import init_synthesizer_params
+    from piper_tpu_torch.runtime.voice import random_voice_config
+    from piper_tpu_torch.weights.native import save_native
+
+    cfg = ModelConfig.for_quality("medium", num_symbols=256)
+    params = init_synthesizer_params(1, cfg)
+    save_native(str(tmp / "voice.npz"), params, cfg)
+    (tmp / "voice.npz.json").write_text(json.dumps(random_voice_config(cfg).to_dict()))
+    return cfg, params
+
+
+def phase_main_path(tmp: Path, cfg, params_np, card: str):
+    import numpy as np
+    import torch
+
+    from piper_tpu_torch.models.vits import generator as G
+    from piper_tpu_torch.ops.cuda import vocoder as V
+    from piper_tpu_torch.runtime.voice import TorchVoice, _fp32_exact
+    from piper_tpu_torch.weights.bridge import params_from_jax
+
+    voice = str(tmp / "voice.npz")
+    out_a, out_b, out_1 = tmp / "a", tmp / "b", tmp / "one"
+    V.mrf_fused.launches = 0
+    V.fused_upsample_mrf.launches = 0
+    t0 = time.perf_counter()
+    run_cli(["-m", voice, "-d", str(out_a), "--batch", "--seed", "1"], TEXTS)
+    cli_s = time.perf_counter() - t0
+    launches = {"mrf_fused": V.mrf_fused.launches,
+                "fused_upsample_mrf": V.fused_upsample_mrf.launches}
+    print(f"main path (CLI --batch, {len(TEXTS)} lines, cold): {cli_s:.3f} s, launches {launches}")
+    check(launches["mrf_fused"] >= 1 and launches["fused_upsample_mrf"] == 2 * launches["mrf_fused"],
+          "main path launched mrf_fused once and fused_upsample_mrf twice per vocode")
+
+    wavs = sorted(out_a.glob("*.wav"))
+    check(len(wavs) == len(TEXTS), f"{len(wavs)} WAVs for {len(TEXTS)} lines")
+    u = cfg.upsample_factor
+    for p in wavs:
+        raw, sr, pcm = read_wav(p)
+        check(raw[:4] == b"RIFF" and raw[8:12] == b"WAVE" and sr == 22050
+              and len(pcm) > 0 and len(pcm) % u == 0 and int(np.abs(pcm).max()) > 0,
+              f"{p.name}: RIFF/WAVE, {sr} Hz, {len(pcm)} samples ({len(pcm) // u} frames), non-zero")
+
+    run_cli(["-m", voice, "-d", str(out_b), "--batch", "--seed", "1", "-q"], TEXTS)
+    same = all((out_a / p.name).read_bytes() == (out_b / p.name).read_bytes() for p in wavs)
+    check(same, "same seed, same bytes (two CLI runs)")
+
+    run_cli(["-m", voice, "-d", str(out_1), "--batch", "--seed", "1", "-q"], TEXTS[1:2])
+    _, _, alone = read_wav(out_1 / "0000.wav")
+    _, _, in_batch = read_wav(out_a / "0001.wav")
+    n_diff = -1 if len(alone) != len(in_batch) else int(np.abs(alone.astype(np.int32) - in_batch).max())
+    print(f"row alone vs in batch (fast): {len(alone)} vs {len(in_batch)} samples, "
+          f"max |diff| {n_diff} of 32767")
+    check(n_diff == 0, "a row alone equals the same row inside the batch")
+
+    # time-major generator (kernels) against the plain generator (cuDNN), f32
+    with _fp32_exact(), torch.inference_mode():
+        dec = params_from_jax(params_np, cfg, "cuda", torch.float32)["dec"]
+        tm = G.prepare_tm(dec, cfg, torch.float32)
+        frames = torch.tensor([97, 60, 9], dtype=torch.int32)
+        g = torch.Generator().manual_seed(5)
+        mask = (torch.arange(97)[None, :] < frames[:, None])[..., None].float()
+        z = (torch.randn((3, 97, cfg.inter_channels), generator=g) * mask).cuda()
+        ref = G.generator_apply(dec, z, mask.cuda(), cfg=cfg)
+        got = G.generator_tm_apply(dec, tm, z, frames.cuda(), cfg=cfg)
+        err = max((got[i, : int(n) * u] - ref[i, : int(n) * u]).abs().max().item()
+                  for i, n in enumerate(frames))
+    check(err < 1e-4, f"generator_tm_apply (kernels) vs generator_apply (cuDNN), float32: "
+                      f"max_abs_err {err:.3e} on valid samples (atol 1e-4)")
+
+    # the card against the CPU: parity precision, one short utterance
+    ids = [[1, 0] + [40 + (7 * i) % 50 for i in range(30)] + [0, 2]]
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        v = TorchVoice(params_np, cfg, _voice_cfg(cfg), precision="parity", device=dev)
+        outs[dev] = v.synthesize_ids_batch(ids, syn=_syn(seed=3))[0]
+    n = min(len(outs["cpu"]), len(outs["cuda"]))
+    err_dev = float(np.abs(outs["cpu"][:n] - outs["cuda"][:n]).max()) if n else math.inf
+    check(len(outs["cpu"]) == len(outs["cuda"]) and err_dev < 1e-3,
+          f"card vs CPU, parity, {len(outs['cuda'])} samples: max_abs_err {err_dev:.3e} "
+          "(atol 1e-3: float32 sums in another order through 14 flow and 46 conv layers)")
+
+    # warm batch: 16 rows, about 400 frames each
+    fast = TorchVoice(params_np, cfg, _voice_cfg(cfg), precision="fast", device="cuda")
+    rng = np.random.default_rng(0)
+    rows = [[1, 0] + [int(t) for t in rng.integers(3, 256, 250)] + [0, 2] for _ in range(16)]
+    fast.synthesize_ids_batch(rows, syn=_syn(seed=7))  # warm-up
+    times, audio_s = [], 0.0
+    for _ in range(3):
+        t0 = time.perf_counter()
+        audios = fast.synthesize_ids_batch(rows, syn=_syn(seed=7))
+        times.append(time.perf_counter() - t0)
+        audio_s = sum(len(a) for a in audios) / cfg.audio.sample_rate
+    best = min(times)
+    frames_per_row = [len(a) // u for a in audios]
+    print(f"warm batch, fast, 16 rows x {min(frames_per_row)}-{max(frames_per_row)} frames "
+          f"({audio_s:.2f} audio-s): wall {sorted(times)} s, best {best:.4f} s, "
+          f"{audio_s / best:.1f} audio-s/s, RTF {best / audio_s:.5f}  [{card}]", flush=True)
+    profile_batch(fast, rows)
+    return launches
+
+
+def _voice_cfg(cfg):
+    from piper_tpu_torch.runtime.voice import random_voice_config
+
+    return random_voice_config(cfg)
+
+
+def _syn(seed):
+    from piper_tpu_torch.config import SynthesisConfig
+
+    return SynthesisConfig(seed=seed)
+
+
+def profile_batch(voice, rows):
+    """Device time by kernel over one warm batch (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        voice.synthesize_ids_batch(rows, syn=_syn(seed=7))
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.key_averages() if getattr(e, "device_type", None) is not None
+              and str(e.device_type).endswith("CUDA")]
+    dev_total = sum(e.self_device_time_total for e in events) / 1e3
+    print(f"profile of one warm batch: wall {wall * 1e3:.2f} ms, device busy "
+          f"{dev_total:.2f} ms ({100 * dev_total / (wall * 1e3):.1f}% of wall)")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
+        print(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<4d} {e.key[:90]}")
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    from piper_tpu_torch.ops.cuda import vocoder as V
+
+    # 1. the card, versions, kernel build
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    name = torch.cuda.get_device_name(0)
+    part, peaks = peaks_for(name)
+    print(smi)
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {name} "
+          f"({torch.cuda.get_device_properties(0).multi_processor_count} SMs); "
+          f"peaks used for bounds: {part} {peaks}")
+    t0 = time.perf_counter()
+    V.build()
+    print(f"kernel build (nvcc, both sources in parallel): {time.perf_counter() - t0:.2f} s")
+    for n, log in V.BUILD_LOG.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                print(f"  {n}: {line.strip()}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        cfg, params_np = make_voice(tmp)
+        # 2. kernels against plain versions
+        results = phase_kernels(cfg, params_np, peaks)
+        # 3. main path
+        launches = phase_main_path(tmp, cfg, params_np, smi)
+
+    kernels = []
+    for kname in ("mrf_fused", "fused_upsample_mrf"):
+        row = dict(results[(kname, "bfloat16")])
+        row["launches"] = launches[kname]
+        for key in ("gflop", "mbytes"):
+            row.pop(key)
+        kernels.append(row)
+    if FAILURES:
+        print(f"chip_smoke: {len(FAILURES)} check(s) failed:", *FAILURES, sep="\n  ", file=sys.stderr)
+        return 1
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,131 @@
+"""piper_tpu_torch CLI: text on stdin -> WAV, on the GPU.
+
+Counterpart of piper_tpu/__main__.py (flag-compatible with the
+reference CLI, src/python_run/piper/__main__.py). Modes:
+
+  -f FILE          all of stdin as one text -> one WAV (stdout when '-'
+                   or absent); its phrases are synthesised as one batch
+  -d DIR           one WAV per stdin line ({"output_file"} with
+                   --json-input, else DIR/<line number>.wav); --batch
+                   synthesises all lines in one device batch (with the
+                   command line's speaker and scales for every line)
+
+Runs on CUDA unless --device cpu is given; without a GPU it exits with
+an error rather than falling back to the CPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import logging
+import sys
+import wave
+from pathlib import Path
+
+import numpy as np
+
+from .config import SynthesisConfig
+from .runtime.voice import SynthesisStats, TorchVoice
+from .runtime.wav import write_wav
+
+_LOGGER = logging.getLogger("piper_tpu_torch")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(prog="piper_tpu_torch")
+    parser.add_argument("-m", "--model", required=True, help="Path to a native .npz voice")
+    parser.add_argument("-c", "--config", help="Path to the voice JSON config")
+    parser.add_argument("-f", "--output-file", "--output_file",
+                        help="Output WAV file (default: stdout)")
+    parser.add_argument("-d", "--output-dir", "--output_dir",
+                        help="Output directory for per-line WAVs")
+    parser.add_argument("--json-input", action="store_true",
+                        help="stdin lines are JSON objects (C++ CLI protocol)")
+    parser.add_argument("-s", "--speaker", type=int, help="Speaker id")
+    parser.add_argument("--length-scale", "--length_scale", type=float)
+    parser.add_argument("--noise-scale", "--noise_scale", type=float)
+    parser.add_argument("--noise-w", "--noise_w", type=float)
+    parser.add_argument("--sentence-silence", "--sentence_silence", type=float, default=0.0)
+    parser.add_argument("--precision", choices=["parity", "fast"], default="fast")
+    parser.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                        help="cuda (default) or cpu; never chosen for you")
+    parser.add_argument("--seed", type=int, help="Deterministic synthesis seed")
+    parser.add_argument("--batch", action="store_true",
+                        help="With --output-dir: synthesise all stdin lines as one batch")
+    parser.add_argument("--debug", action="store_true")
+    parser.add_argument("-q", "--quiet", action="store_true")
+    return parser
+
+
+def main(argv=None) -> None:
+    args = build_parser().parse_args(argv)
+    level = logging.DEBUG if args.debug else logging.WARNING if args.quiet else logging.INFO
+    logging.basicConfig(level=level)
+
+    voice = TorchVoice.load(
+        args.model, args.config, precision=args.precision, device=args.device
+    )
+    base_syn = SynthesisConfig(
+        speaker_id=args.speaker,
+        length_scale=args.length_scale,
+        noise_scale=args.noise_scale,
+        noise_w=args.noise_w,
+        sentence_silence_seconds=args.sentence_silence,
+        seed=args.seed,
+    )
+    stats = SynthesisStats()
+
+    def parse_line(line: str):
+        """(text, syn, output_file) from a stdin line."""
+        if not args.json_input:
+            return line, base_syn, None
+        obj = json.loads(line)
+        syn = dataclasses.replace(base_syn)
+        if "speaker_id" in obj:
+            syn.speaker_id = int(obj["speaker_id"])
+        elif "speaker" in obj and voice.config.speaker_id_map:
+            syn.speaker_id = voice.config.speaker_id_map.get(str(obj["speaker"]))
+        return obj["text"], syn, obj.get("output_file")
+
+    if args.output_dir:
+        out_dir = Path(args.output_dir)
+        out_dir.mkdir(parents=True, exist_ok=True)
+        lines = [parse_line(l.strip()) for l in sys.stdin if l.strip()]
+        paths = [
+            Path(out_file) if out_file else out_dir / f"{i:04d}.wav"
+            for i, (_, _, out_file) in enumerate(lines)
+        ]
+        if args.batch:
+            # one device batch for every line; lines share base_syn
+            pcms = voice.synthesize_batch([t for t, _, _ in lines], syn=base_syn, stats=stats)
+            for sentences, path in zip(pcms, paths):
+                write_wav(path, np.concatenate(sentences or [np.zeros(0, np.int16)]),
+                          voice.config.sample_rate)
+        else:
+            for (text, syn, _), path in zip(lines, paths):
+                with wave.open(str(path), "wb") as wav_file:
+                    voice.synthesize_wav(text, wav_file, syn=syn, stats=stats)
+        for path in paths:
+            _LOGGER.info("Wrote %s", path)
+    else:
+        text = sys.stdin.read()
+        target = (
+            sys.stdout.buffer
+            if not args.output_file or args.output_file == "-"
+            else args.output_file
+        )
+        with wave.open(target, "wb") as wav_file:
+            voice.synthesize_wav(text, wav_file, syn=base_syn, stats=stats)
+
+    _LOGGER.info(
+        "RTF %.4f (infer %.3fs / audio %.3fs, device %s, precision %s; "
+        "includes kernel builds on first use)",
+        stats.real_time_factor, stats.infer_seconds, stats.audio_seconds,
+        voice.device, voice.precision,
+    )
+
+
+if __name__ == "__main__":
+    main()

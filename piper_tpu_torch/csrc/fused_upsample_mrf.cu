@@ -1,0 +1,250 @@
+// fused_upsample_mrf: one whole HiFiGAN upsample stage in one pass.
+//
+// Replaces the Pallas TPU kernel
+// piper_tpu/ops/pallas/vocoder.py::fused_upsample_mrf (body
+// _fused_stage_kernel, pallas_call at line 693).
+//
+// What it computes, per row b and output sample t (true time at this
+// stage's resolution, u_out = u * u_in samples per frame):
+//   y  = polyphase ConvTranspose1d of mask(lrelu_0.1(x)) + bias  (u phases x
+//        nq taps, tables from models/vits/generator.py::_tm_phase_plan)
+//   y  = mask(y); then the MRF stage exactly as in mrf_fused.cu
+//   post: wave = mask(tanh(conv_post_k7(mask(lrelu_0.01(y)))))  (C -> 1)
+// The input is interleaved time-major (u_in = 1: rows = C_in) or the
+// phase-plane output of the previous fused stage (u_in > 1: row
+// p*C_in + c, frame f holds sample u_in*f + p). The output keeps the JAX
+// function's plane layout: (B, u_out*C_out, V) planes, or (B, u_out, V)
+// waveform planes with post.
+//
+// What bounds it on an H100: arithmetic. Stage 1 of the medium voice costs
+// about 17.8 MFLOP per input frame against 2*128 bytes read and 2*8*64
+// written, stage 2 (with conv_post) about 17.9 MFLOP against 2*8*64 read
+// and 2*32 written: both far above the balance point, so the FMA rate is
+// the bound.
+//
+// What the design does about it: one block per (row, tile of output
+// samples). The TPU kernel computes in the phase-plane layout because
+// Mosaic has no lane shuffle; here the block works in interleaved true
+// time and uses the plane layout only as the index map of its input reads
+// and output writes. The input window (with the transposed conv's taps and
+// the chain's halo: 45 + 3 samples each side on stage 2) is loaded once;
+// the transposed conv's output, the residual stream and the conv inputs
+// stay in shared memory through the whole chain and conv_post, so device
+// memory sees one read of x and one write of the planes. Weights stream
+// from L2 as in mrf_fused.cu; plain f32 FMAs on the CUDA cores.
+#include "mrf_common.cuh"
+
+namespace pt {
+
+// y[co][i] = mask(bt[co] + sum_qi sum_ci wt[p][qi][ci][co] * in[ci][v + q0 + qi - s_lo])
+// for window position i (sample t = org + i, v = floor(t / u), p = t - u*v).
+template <typename T>
+PT_DEVICE void tconv_phase(int tid, const T* in, int ld_in, int s_lo, T* y, int c_in, int c_out, int w, int org,
+                           int u, int q0, int nq, int len, const T* wt, const float* bt) {
+  PassMap m = pass_map(tid, c_out);
+  if (!m.active) return;
+  const int span = m.lanes * kTPer;
+  // lanes a multiple of u: all kTPer positions of a thread share a phase
+  const bool uniform = (m.lanes % u) == 0;
+  for (int base = 0; base < w; base += span) {
+    int xi[kTPer], ph[kTPer];
+    float acc[kCoPer][kTPer];
+    for (int j = 0; j < kTPer; ++j) {
+      int i = base + m.lane + m.lanes * j;
+      int t = org + (i < w ? i : w - 1);
+      int v = floor_div(t, u);
+      ph[j] = t - v * u;
+      xi[j] = v + q0 - s_lo;
+    }
+    for (int q = 0; q < kCoPer; ++q) {
+      float bv = PT_LDG(bt + m.co0 + q);
+      for (int j = 0; j < kTPer; ++j) acc[q][j] = bv;
+    }
+    for (int qi = 0; qi < nq; ++qi) {
+      for (int ci = 0; ci < c_in; ++ci) {
+        const T* ir = in + ci * ld_in + qi;
+        float xv[kTPer];
+        for (int j = 0; j < kTPer; ++j) xv[j] = to_f(ir[xi[j]]);
+        if (uniform) {
+          float wv[kCoPer];
+          load4(wt + ((size_t)(ph[0] * nq + qi) * c_in + ci) * c_out + m.co0, wv);
+          for (int q = 0; q < kCoPer; ++q)
+            for (int j = 0; j < kTPer; ++j) acc[q][j] = fmaf(wv[q], xv[j], acc[q][j]);
+        } else {
+          for (int j = 0; j < kTPer; ++j) {
+            float wv[kCoPer];
+            load4(wt + ((size_t)(ph[j] * nq + qi) * c_in + ci) * c_out + m.co0, wv);
+            for (int q = 0; q < kCoPer; ++q) acc[q][j] = fmaf(wv[q], xv[j], acc[q][j]);
+          }
+        }
+      }
+    }
+    for (int j = 0; j < kTPer; ++j) {
+      int i = base + m.lane + m.lanes * j;
+      if (i >= w) continue;
+      int t = org + i;
+      bool valid = t >= 0 && t < len;
+      for (int q = 0; q < kCoPer; ++q)
+        y[(m.co0 + q) * w + i] = valid ? from_f<T>(acc[q][j]) : from_f<T>(0.f);
+    }
+  }
+}
+
+struct StageArgs {
+  int c_in, c_out, v;        // channels in/out, frames of input and output
+  int u, u_in, q0, nq;       // upsample, input planes, polyphase taps
+  int post, k_post;          // conv_post epilogue
+  int tile, halo, hpost;     // output samples per block, total halo, post halo
+  int margin, ld_in;         // conv-input margin, input-window row length
+};
+
+template <typename T>
+PT_DEVICE void stage_block(const T* __restrict__ x, const int* __restrict__ lengths, const T* __restrict__ wt,
+                           const float* __restrict__ bt, const T* __restrict__ wm, const float* __restrict__ bm,
+                           const T* __restrict__ wpost, T* __restrict__ out, const StageArgs& s, const MrfPlan& plan,
+                           int bx, int by, char* smem) {
+  const int c = s.c_out, u_out = s.u * s.u_in;
+  const int w = s.tile + 2 * s.halo;
+  const int lda = w + 2 * s.margin;
+  const int xs_w = s.tile + 2 * s.hpost, xs_off = s.halo - s.hpost;
+  const int b = by;
+  const int t0 = bx * s.tile;
+  const int n_out = s.v * u_out;
+  const int len = min(PT_LDG(lengths + b), n_out);
+  const int in_len = min(len / s.u, s.v * s.u_in);  // valid input samples
+  const int org = t0 - s.halo;
+  const int v_lo = max(0, -org), v_hi = max(0, min(w, len - org));
+  const int s_lo = floor_div(org, s.u) + s.q0;
+  const int s_hi = floor_div(org + w - 1, s.u) + s.q0 + s.nq - 1;
+
+  MrfSmem<T> m;
+  T* p = reinterpret_cast<T*>(smem);
+  m.a = p;
+  p += align_elems((size_t)c * lda);
+  m.h = p;
+  p += align_elems((size_t)c * w);
+  m.b = p;
+  if (plan.rb1) p += align_elems((size_t)c * w);
+  m.xs = p;
+  p += align_elems((size_t)c * xs_w);
+  T* y = p;
+  p += align_elems((size_t)c * w);
+  T* in = p;
+
+  // input window: samples [s_lo, s_hi], masked, lrelu_0.1; read frame-fastest
+  // so neighbouring threads read neighbouring frames of one plane
+  const T* xrow = x + (size_t)b * s.u_in * s.c_in * s.v;
+  const int fr_lo = floor_div(s_lo, s.u_in), n_fr = floor_div(s_hi, s.u_in) - fr_lo + 1;
+  PT_THREADS(tid) {
+    for (int e = tid; e < c * lda; e += kThreads) m.a[e] = from_f<T>(0.f);
+    for (int e = tid; e < c * xs_w; e += kThreads) m.xs[e] = from_f<T>(0.f);
+    for (int e = tid; e < s.c_in * s.u_in * n_fr; e += kThreads) {
+      int ci = e / (s.u_in * n_fr), r = e - ci * (s.u_in * n_fr);
+      int p1 = r / n_fr, f = fr_lo + (r - p1 * n_fr);
+      int smp = f * s.u_in + p1;
+      if (smp < s_lo || smp > s_hi) continue;
+      float v = 0.f;
+      if (smp >= 0 && smp < in_len) {
+        v = to_f(xrow[((size_t)p1 * s.c_in + ci) * s.v + f]);
+        v = v >= 0.f ? v : v * 0.1f;
+      }
+      in[ci * s.ld_in + (smp - s_lo)] = from_f<T>(v);
+    }
+  }
+  PT_SYNC();
+  PT_THREADS(tid) { tconv_phase(tid, in, s.ld_in, s_lo, y, s.c_in, c, w, org, s.u, s.q0, s.nq, len, wt, bt); }
+  PT_SYNC();
+
+  auto load_h = [&](int tid) {
+    for (int e = tid; e < c * w; e += kThreads) m.h[e] = y[e];
+  };
+  mrf_chain(plan, m, c, w, lda, s.margin, v_lo, v_hi, xs_off, xs_w, wm, bm, load_h);
+
+  const float n_res = (float)plan.n_res;
+  const int nf = s.tile / u_out;  // frames per tile (tile % u_out == 0)
+  const int f0 = t0 / u_out;
+  T* orow = out + (size_t)b * (s.post ? 1 : c) * u_out * s.v;
+  if (!s.post) {
+    // write (plane, channel, frame) with the frame fastest: coalesced rows
+    PT_THREADS(tid) {
+      for (int e = tid; e < c * s.tile; e += kThreads) {
+        int ch = e / s.tile, r = e - ch * s.tile;
+        int pl = r / nf, f = r - pl * nf;
+        int j = f * u_out + pl;
+        if (f0 + f < s.v)
+          orow[((size_t)pl * c + ch) * s.v + f0 + f] = from_f<T>(to_f(m.xs[ch * xs_w + j]) / n_res);
+      }
+    }
+    return;
+  }
+  // conv_post: g = mask(lrelu_0.01(T(xs / n_res))) into a's data columns
+  PT_THREADS(tid) {
+    for (int e = tid; e < c * xs_w; e += kThreads) {
+      int ch = e / xs_w, j = e - ch * xs_w;
+      int i = xs_off + j;
+      float g = to_f(from_f<T>(to_f(m.xs[e]) / n_res));
+      g = g >= 0.f ? g : g * 0.01f;
+      m.a[ch * lda + s.margin + j] = (i >= v_lo && i < v_hi) ? from_f<T>(g) : from_f<T>(0.f);
+    }
+  }
+  PT_SYNC();
+  PT_THREADS(tid) {
+    for (int r = tid; r < s.tile; r += kThreads) {
+      int pl = r / nf, f = r - pl * nf;
+      int j = f * u_out + pl;
+      int t = t0 + j;
+      if (f0 + f >= s.v) continue;
+      float acc = 0.f;
+      for (int kk = 0; kk < s.k_post; ++kk) {
+        const T* ar = m.a + s.margin + j + kk;
+        const T* wp = wpost + kk * c;
+        for (int ch = 0; ch < c; ++ch) acc = fmaf(to_f(PT_LDG(wp + ch)), to_f(ar[ch * lda]), acc);
+      }
+      float wave = t < len ? tanhf(acc) : 0.f;
+      orow[(size_t)pl * s.v + f0 + f] = from_f<T>(wave);
+    }
+  }
+}
+
+}  // namespace pt
+
+#ifndef PT_HOST_EMULATION
+template <typename T>
+__global__ void __launch_bounds__(pt::kThreads)
+    fused_stage_kernel(const T* x, const int* lengths, const T* wt, const float* bt, const T* wm, const float* bm,
+                       const T* wpost, T* out, pt::StageArgs s, pt::MrfPlan plan) {
+  extern __shared__ __align__(16) char smem[];
+  pt::stage_block<T>(x, lengths, wt, bt, wm, bm, wpost, out, s, plan, blockIdx.x, blockIdx.y, smem);
+}
+
+template <typename T>
+static int launch(const void* x, const void* lengths, const void* wt, const void* bt, const void* wm, const void* bm,
+                  const void* wpost, void* out, int batch, const pt::StageArgs& s, const pt::MrfPlan& plan,
+                  int smem_bytes, cudaStream_t stream) {
+  cudaError_t err =
+      cudaFuncSetAttribute(fused_stage_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  const int n_out = s.v * s.u * s.u_in;
+  dim3 grid((n_out + s.tile - 1) / s.tile, batch);
+  fused_stage_kernel<T><<<grid, pt::kThreads, smem_bytes, stream>>>(
+      (const T*)x, (const int*)lengths, (const T*)wt, (const float*)bt, (const T*)wm, (const float*)bm,
+      (const T*)wpost, (T*)out, s, plan);
+  return (int)cudaGetLastError();
+}
+
+// Returns 0 or a cudaError_t (-1: bad plan, -2: bad dtype).
+extern "C" int pt_fused_upsample_mrf(const void* x, const void* lengths, const void* wt, const void* bt,
+                                     const void* wm, const void* bm, const void* wpost, void* out, int batch,
+                                     const int* args, int n_args, int dtype, const int* plan_ints, int n_plan,
+                                     int smem_bytes, void* stream) {
+  pt::MrfPlan plan;
+  if (!pt::parse_plan(plan_ints, n_plan, &plan)) return -1;
+  if (n_args != 14) return -1;
+  pt::StageArgs s{args[0], args[1], args[2], args[3],  args[4],  args[5],  args[6],
+                  args[7], args[8], args[9], args[10], args[11], args[12], args[13]};
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == 0) return launch<float>(x, lengths, wt, bt, wm, bm, wpost, out, batch, s, plan, smem_bytes, st);
+  if (dtype == 1) return launch<pt_bf16>(x, lengths, wt, bt, wm, bm, wpost, out, batch, s, plan, smem_bytes, st);
+  return -2;
+}
+#endif

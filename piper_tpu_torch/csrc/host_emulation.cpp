@@ -1,0 +1,64 @@
+// Host build of the two CUDA kernels, for checking their index arithmetic
+// on a machine without a GPU (tests/test_torch_kernel_emulation.py):
+//
+//   g++ -O2 -std=c++17 -shared -fPIC -DPT_HOST_EMULATION host_emulation.cpp -o libemu.so
+//
+// With PT_HOST_EMULATION the kernels' bodies (mrf_block, stage_block) run
+// one block at a time, phase by phase over all threads of the block (see
+// mrf_common.cuh). The entry points take the same arguments as
+// pt_mrf_fused / pt_fused_upsample_mrf, less the stream; bf16 buffers
+// hold raw 16-bit patterns.
+#define PT_HOST_EMULATION 1
+#include <vector>
+
+#include "fused_upsample_mrf.cu"
+#include "mrf_fused.cu"
+
+template <typename T>
+static void run_mrf(const void* x, const void* lengths, const void* wm, const void* bm, void* out, int batch, int c,
+                    int t_len, int tile, int halo, int margin, const pt::MrfPlan& plan, int smem_bytes) {
+  std::vector<char> smem(smem_bytes);
+  for (int by = 0; by < batch; ++by)
+    for (int bx = 0; bx < (t_len + tile - 1) / tile; ++bx)
+      pt::mrf_block<T>((const T*)x, (const int*)lengths, (const T*)wm, (const float*)bm, (T*)out, c, t_len, tile,
+                       halo, margin, plan, bx, by, smem.data());
+}
+
+extern "C" int emu_mrf_fused(const void* x, const void* lengths, const void* wm, const void* bm, void* out,
+                             int batch, int c, int t_len, int tile, int halo, int margin, int dtype,
+                             const int* plan_ints, int n_plan, int smem_bytes) {
+  pt::MrfPlan plan;
+  if (!pt::parse_plan(plan_ints, n_plan, &plan)) return -1;
+  if (dtype == 0) run_mrf<float>(x, lengths, wm, bm, out, batch, c, t_len, tile, halo, margin, plan, smem_bytes);
+  else if (dtype == 1)
+    run_mrf<pt_bf16>(x, lengths, wm, bm, out, batch, c, t_len, tile, halo, margin, plan, smem_bytes);
+  else return -2;
+  return 0;
+}
+
+template <typename T>
+static void run_stage(const void* x, const void* lengths, const void* wt, const void* bt, const void* wm,
+                      const void* bm, const void* wpost, void* out, int batch, const pt::StageArgs& s,
+                      const pt::MrfPlan& plan, int smem_bytes) {
+  std::vector<char> smem(smem_bytes);
+  const int n_out = s.v * s.u * s.u_in;
+  for (int by = 0; by < batch; ++by)
+    for (int bx = 0; bx < (n_out + s.tile - 1) / s.tile; ++bx)
+      pt::stage_block<T>((const T*)x, (const int*)lengths, (const T*)wt, (const float*)bt, (const T*)wm,
+                         (const float*)bm, (const T*)wpost, (T*)out, s, plan, bx, by, smem.data());
+}
+
+extern "C" int emu_fused_upsample_mrf(const void* x, const void* lengths, const void* wt, const void* bt,
+                                      const void* wm, const void* bm, const void* wpost, void* out, int batch,
+                                      const int* args, int n_args, int dtype, const int* plan_ints, int n_plan,
+                                      int smem_bytes) {
+  pt::MrfPlan plan;
+  if (!pt::parse_plan(plan_ints, n_plan, &plan)) return -1;
+  if (n_args != 14) return -1;
+  pt::StageArgs s{args[0], args[1], args[2], args[3],  args[4],  args[5],  args[6],
+                  args[7], args[8], args[9], args[10], args[11], args[12], args[13]};
+  if (dtype == 0) run_stage<float>(x, lengths, wt, bt, wm, bm, wpost, out, batch, s, plan, smem_bytes);
+  else if (dtype == 1) run_stage<pt_bf16>(x, lengths, wt, bt, wm, bm, wpost, out, batch, s, plan, smem_bytes);
+  else return -2;
+  return 0;
+}

@@ -1,0 +1,101 @@
+"""The weight bridge: a JAX parameter tree (numpy leaves) -> torch tensors.
+
+The port keeps the JAX package's parameter layouts so the two can be
+compared leaf by leaf:
+
+  dense:            w (in, out), b (out,)
+  conv1d:           w (k, in // groups, out), b (out,)
+  conv transpose:   w (k, in, out), stored PRE-FLIPPED for the
+                    input-dilated formulation (piper_tpu/ops/nn.py:64-157;
+                    the flip shows in piper_tpu/weights/torch_export.py:39)
+
+A plain torch ConvTranspose1d needs that flip undone:
+ops/nn.py::torch_conv_transpose_weight does it where the port calls
+F.conv_transpose1d; the polyphase tables of the time-major generator
+(models/vits/generator.py::prepare_tm) read the pre-flipped layout as is.
+
+Voices may store float16 arrays (tests/data/voice_xlow_trained_fp16.npz),
+so every float leaf is cast explicitly: to the compute dtype, except the
+duration predictor ("dp"), whose math stays float32 in both precisions
+(models/vits/duration.py).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Iterator, Tuple
+
+import numpy as np
+import torch
+
+from ..config import ModelConfig
+
+Params = Dict[str, Any]
+
+FLOAT32_SUBTREES = ("dp",)
+
+
+def _to_tensor(a, device, dtype) -> torch.Tensor:
+    arr = np.asarray(a)
+    if arr.dtype.kind in "iu":
+        return torch.tensor(arr, device=device)
+    return torch.tensor(arr, dtype=torch.float32).to(device=device, dtype=dtype)
+
+
+def _convert(tree: Any, device, dtype) -> Any:
+    if isinstance(tree, dict):
+        return {k: _convert(v, device, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_convert(v, device, dtype) for v in tree]
+    return _to_tensor(tree, device, dtype)
+
+
+def params_from_jax(
+    tree: Params,
+    cfg: ModelConfig,
+    device="cpu",
+    dtype: torch.dtype = torch.float32,
+) -> Params:
+    """Numpy tree in the JAX layouts -> the port's tree of tensors.
+
+    Raises when the tree does not match `cfg` (missing generator stages,
+    wrong conv-transpose shapes), so a voice loaded against the wrong
+    config fails here and not deep inside a kernel.
+    """
+    _check_tree(tree, cfg)
+    out = {}
+    for k, v in tree.items():
+        sub_dtype = torch.float32 if k in FLOAT32_SUBTREES else dtype
+        out[k] = _convert(v, device, sub_dtype)
+    return out
+
+
+def _check_tree(tree: Params, cfg: ModelConfig) -> None:
+    for key in ("enc_p", "dp", "flow", "dec"):
+        if key not in tree:
+            raise KeyError(f"voice parameters lack {key!r}")
+    dec = tree["dec"]
+    if cfg.vocoder != "hifigan":
+        return
+    uic = cfg.upsample_initial_channel
+    if len(dec["ups"]) != len(cfg.upsample_rates):
+        raise ValueError(
+            f"generator has {len(dec['ups'])} upsample stages, config "
+            f"{len(cfg.upsample_rates)}"
+        )
+    for i, k in enumerate(cfg.upsample_kernel_sizes):
+        want = (k, uic // 2**i, uic // 2 ** (i + 1))
+        got = tuple(np.shape(dec["ups"][i]["w"]))
+        if got != want:
+            raise ValueError(f"dec.ups.{i}.w has shape {got}, expected {want}")
+
+
+def iter_leaves(tree: Any, prefix: str = "") -> Iterator[Tuple[str, Any]]:
+    """(dotted name, leaf) pairs in the native-format key order."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from iter_leaves(v, f"{prefix}{k}.")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from iter_leaves(v, f"{prefix}{i}.")
+    else:
+        yield prefix[:-1], tree

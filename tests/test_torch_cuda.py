@@ -1,0 +1,152 @@
+"""The CUDA kernels on the card against their plain versions, over more
+shapes than chip_smoke.py's medium voice: resblock "1" and "2", narrow
+and odd-sized channel counts, every upsample factor of the presets,
+chained phase planes, ragged rows, float32 and bfloat16; and the
+wrappers' checks of what they are given.
+
+These tests need an NVIDIA GPU and skip without one. Run them on the
+card with
+
+    python -m pytest tests/test_torch_cuda.py -m cuda -q
+"""
+
+import pytest
+import torch
+
+from piper_tpu_torch.models.vits.generator import _tm_phase_plan
+from piper_tpu_torch.ops.cuda import vocoder as V
+
+pytestmark = pytest.mark.cuda
+
+RB = {
+    "1": ((3, 7, 11), ((1, 3, 5), (1, 3, 5), (1, 3, 5))),
+    "2": ((3, 5, 7), ((1, 2), (2, 6), (3, 12))),
+}
+# (atol, rtol): float32 differs only in the order of the sums; bfloat16
+# rounds at the same points in both, but a sum near a rounding boundary
+# may round the other way (2^-8 relative) and the conv chain carries it.
+TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (3e-2, 3e-2)}
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    V.build()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _blocks(g, c, rb):
+    ks, ds = RB[rb]
+
+    def conv(k):  # unit-gain scale: activations stay O(1) through the chain, as trained ones do
+        return {"w": torch.randn((k, c, c), generator=g) / (k * c) ** 0.5,
+                "b": torch.randn(c, generator=g) * 0.1}
+
+    if rb == "1":
+        return [{"convs1": [conv(k) for _ in d], "convs2": [conv(k) for _ in d]} for k, d in zip(ks, ds)]
+    return [{"convs": [conv(k) for _ in d]} for k, d in zip(ks, ds)]
+
+
+def _close(got, ref, dtype):
+    atol, rtol = TOL[dtype]
+    torch.testing.assert_close(got.float().cpu(), ref.float().cpu(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rb,c,t", [("2", 128, 1000), ("2", 32, 77), ("1", 64, 513), ("1", 12, 300)])
+def test_mrf_fused_kernel(dev, rb, c, t, dtype):
+    g = torch.Generator().manual_seed(c + t)
+    ks, ds = RB[rb]
+    w, b = V.pack_stage_weights(_blocks(g, c, rb), ks, ds, rb, dtype=dtype)
+    lengths = torch.tensor([t, t - 61, 3], dtype=torch.int32)
+    x = torch.randn((3, c, t), generator=g) * (torch.arange(t)[None, None] < lengths[:, None, None])
+    args = [a.to(dev) for a in (x.to(dtype), lengths, w, b)]
+    kw = dict(kernel_sizes=ks, dilation_sizes=ds, resblock_type=rb)
+    before = V.mrf_fused.launches
+    got = V.mrf_fused(*args, **kw)
+    assert V.mrf_fused.launches == before + 1
+    _close(got, V.mrf_fused_plain(*args, **kw), dtype)
+
+
+def _stage(g, u, k, c_in, c_out, rb, dtype, dev):
+    q0, used, idx = _tm_phase_plan(k, u)
+    kern = torch.randn((k, c_in, c_out), generator=g) * 0.1
+    wt = torch.zeros((u, used.shape[1], c_in, c_out))
+    for p in range(u):
+        for qi in range(used.shape[1]):
+            if used[p, qi]:
+                wt[p, qi] = kern[int(idx[p, qi])]
+    ks, ds = RB[rb]
+    wm, bm = V.pack_stage_weights(_blocks(g, c_out, rb), ks, ds, rb, dtype=dtype)
+    return dict(
+        wt=wt.to(dev, dtype), bt=(torch.randn(c_out, generator=g) * 0.1).to(dev), wm=wm.to(dev),
+        bm=bm.to(dev), wpost=(torch.randn((7, c_out, 1), generator=g) * 0.3).to(dev, dtype),
+        kw=dict(u=u, q0=q0, kernel_sizes=ks, dilation_sizes=ds, resblock_type=rb),
+    )
+
+
+def _run(fn, s, x, lengths, u_in, post):
+    return fn(x, lengths, s["wt"], s["bt"], s["wm"], s["bm"], s["wpost"] if post else None,
+              u_in=u_in, post=post, **s["kw"])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "u,k,c_in,c_out,rb,post",
+    [(8, 16, 128, 64, "2", False), (4, 8, 64, 32, "2", True), (2, 4, 32, 16, "1", True),
+     (8, 16, 48, 24, "1", False)],
+)
+def test_fused_upsample_mrf_kernel(dev, u, k, c_in, c_out, rb, post, dtype):
+    g = torch.Generator().manual_seed(u * 100 + c_in)
+    v = 203
+    s = _stage(g, u, k, c_in, c_out, rb, dtype, dev)
+    lengths = torch.tensor([v * u, (v - 9) * u - 3, 5], dtype=torch.int32)
+    x = torch.randn((3, c_in, v), generator=g) * (torch.arange(v)[None, None] < (lengths // u)[:, None, None])
+    x, lengths = x.to(dev, dtype), lengths.to(dev)
+    before = V.fused_upsample_mrf.launches
+    got = _run(V.fused_upsample_mrf, s, x, lengths, 1, post)
+    assert V.fused_upsample_mrf.launches == before + 1
+    _close(got, _run(V.fused_upsample_mrf_plain, s, x, lengths, 1, post), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rb", ["1", "2"])
+def test_fused_stage_chain_kernel(dev, rb, dtype):
+    """u=8 -> phase planes -> u=4 with u_in=8 and conv_post."""
+    g = torch.Generator().manual_seed(7)
+    v = 131
+    frames = torch.tensor([131, 70, 2], dtype=torch.int32)
+    s1 = _stage(g, 8, 16, 64, 32, rb, dtype, dev)
+    s2 = _stage(g, 4, 8, 32, 16, rb, dtype, dev)
+    x = torch.randn((3, 64, v), generator=g) * (torch.arange(v)[None, None] < frames[:, None, None])
+    x, frames = x.to(dev, dtype), frames.to(dev)
+    outs = []
+    for fn in (V.fused_upsample_mrf, V.fused_upsample_mrf_plain):
+        y = _run(fn, s1, x, frames * 8, 1, False)
+        outs.append(_run(fn, s2, y, frames * 32, 8, True))
+    _close(outs[0], outs[1], dtype)
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    ks, ds = RB["2"]
+    g = torch.Generator().manual_seed(0)
+    w, b = V.pack_stage_weights(_blocks(g, 32, "2"), ks, ds, "2")
+    w, b = w.to(dev), b.to(dev)
+    x = torch.zeros((2, 32, 50), device=dev)
+    lengths = torch.tensor([50, 10], dtype=torch.int32, device=dev)
+    kw = dict(kernel_sizes=ks, dilation_sizes=ds, resblock_type="2")
+    with pytest.raises(TypeError):
+        V.mrf_fused(x.half(), lengths, w.half(), b, **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        V.mrf_fused(x.transpose(1, 2).contiguous().transpose(1, 2), lengths, w, b, **kw)
+    with pytest.raises(TypeError):
+        V.mrf_fused(x, lengths.long(), w, b, **kw)
+    with pytest.raises(ValueError, match="is on"):
+        V.mrf_fused(x, lengths.cpu(), w, b, **kw)
+    with pytest.raises(ValueError, match="stage plan"):
+        V.mrf_fused(x, lengths, w[:4], b[:4], **kw)
+    x = torch.randn((2, 32, 50), generator=g).to(dev)
+    assert torch.equal(V.mrf_fused(x, lengths, w, b, **kw), V.mrf_fused(x, lengths, w, b, **kw))

@@ -1,0 +1,187 @@
+"""The CUDA kernels' own source, built for the host, against the plain versions.
+
+csrc/host_emulation.cpp compiles mrf_fused.cu and fused_upsample_mrf.cu
+with -DPT_HOST_EMULATION: each block runs phase by phase on the CPU
+(csrc/mrf_common.cuh), so the kernels' tiling, halos, masks, polyphase
+and plane index maps are checked here, where there is no GPU. Launch
+parameters come from the same functions the CUDA wrappers use
+(ops/cuda/vocoder.py::mrf_launch_config / fused_launch_config); `n_sm`
+is varied to force several tile sizes per case.
+"""
+
+import ctypes
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+from piper_tpu_torch.models.vits.generator import _tm_phase_plan
+from piper_tpu_torch.ops.cuda import vocoder as V
+
+RB = {
+    "1": ((3, 7), ((1, 3), (1, 3))),
+    "2": ((3, 5, 7), ((1, 2), (2, 6), (3, 12))),
+}
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# (atol, rtol). float32: only the summation order differs. bfloat16: both
+# round at the same points, but a one-ulp flip early in the chain travels;
+# the bounds are a few bf16 ulps (2^-8 relative) of the O(1) activations.
+TOL = {torch.float32: (2e-5, 0.0), torch.bfloat16: (3e-2, 2e-2)}
+
+
+@pytest.fixture(scope="module")
+def emu(tmp_path_factory):
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("no host C++ compiler to build the emulation")
+    out = tmp_path_factory.mktemp("emu") / "libemu.so"
+    subprocess.run(
+        [gxx, "-O2", "-std=c++17", "-shared", "-fPIC", "-DPT_HOST_EMULATION",
+         str(V.CSRC / "host_emulation.cpp"), "-o", str(out)],
+        check=True, capture_output=True,
+    )
+    lib = ctypes.CDLL(str(out))
+    lib.emu_mrf_fused.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+    ]
+    lib.emu_fused_upsample_mrf.argtypes = [ctypes.c_void_p] * 8 + [
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+    ]
+    return lib
+
+
+def _blocks(rng, c, rb):
+    ks, ds = RB[rb]
+    blocks = []
+    for k, dils in zip(ks, ds):
+        def conv():
+            return {
+                "w": torch.from_numpy(rng.standard_normal((k, c, c)).astype(np.float32) * 0.15),
+                "b": torch.from_numpy(rng.standard_normal(c).astype(np.float32) * 0.1),
+            }
+        if rb == "1":
+            blocks.append({"convs1": [conv() for _ in dils], "convs2": [conv() for _ in dils]})
+        else:
+            blocks.append({"convs": [conv() for _ in dils]})
+    return blocks
+
+
+def _emu_mrf(lib, x, lengths, w, b, rb, n_sm):
+    ks, ds = RB[rb]
+    bsz, c, t = x.shape
+    cfg = V.mrf_launch_config(bsz, c, t, ks, ds, rb, w.shape[1], x.element_size(), n_sm)
+    out = torch.full_like(x, float("nan"))
+    rc = lib.emu_mrf_fused(
+        x.data_ptr(), lengths.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
+        bsz, c, t, cfg["tile"], cfg["halo"], cfg["margin"], DTYPES[x.dtype],
+        V._int_array(cfg["plan"]), len(cfg["plan"]), cfg["smem"],
+    )
+    assert rc == 0
+    return out, cfg["tile"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rb,c", [("2", 32), ("1", 16)])
+def test_mrf_fused_source_matches_plain(emu, rb, c, dtype):
+    rng = np.random.default_rng(0)
+    ks, ds = RB[rb]
+    t = 300
+    lengths = torch.tensor([300, 217, 5], dtype=torch.int32)
+    x = torch.from_numpy(rng.standard_normal((3, c, t)).astype(np.float32)).to(dtype)
+    w, b = V.pack_stage_weights(_blocks(rng, c, rb), ks, ds, rb, dtype=dtype)
+    ref = V.mrf_fused_plain(x, lengths, w, b, kernel_sizes=ks, dilation_sizes=ds, resblock_type=rb)
+    tiles = set()
+    for n_sm in (1, 8, 64):
+        got, tile = _emu_mrf(emu, x, lengths, w, b, rb, n_sm)
+        tiles.add(tile)
+        np.testing.assert_allclose(got.float().numpy(), ref.float().numpy(), atol=TOL[dtype][0], rtol=TOL[dtype][1])
+    assert len(tiles) > 1, tiles
+
+
+def _stage_weights(rng, u, k, c_in, c_out, rb, dtype):
+    ks, ds = RB[rb]
+    q0, used, idx = _tm_phase_plan(k, u)
+    kern = rng.standard_normal((k, c_in, c_out)).astype(np.float32) * 0.1
+    wt = np.zeros((u, used.shape[1], c_in, c_out), np.float32)
+    for p in range(u):
+        for qi in range(used.shape[1]):
+            if used[p, qi]:
+                wt[p, qi] = kern[idx[p, qi]]
+    wm, bm = V.pack_stage_weights(_blocks(rng, c_out, rb), ks, ds, rb, dtype=dtype)
+    return dict(
+        wt=torch.from_numpy(wt).to(dtype),
+        bt=torch.from_numpy(rng.standard_normal(c_out).astype(np.float32) * 0.1),
+        wm=wm, bm=bm, q0=q0,
+        wpost=torch.from_numpy(rng.standard_normal((7, c_out, 1)).astype(np.float32) * 0.3).to(dtype),
+    )
+
+
+def _emu_stage(lib, x, lengths, s, *, u, u_in, rb, post, n_sm):
+    ks, ds = RB[rb]
+    bsz, _, v = x.shape
+    _, nq, c_in, c_out = s["wt"].shape
+    cfg = V.fused_launch_config(
+        bsz, v, c_in, c_out, u, u_in, s["q0"], nq, 7 if post else 0, ks, ds, rb,
+        s["wm"].shape[1], x.element_size(), n_sm,
+    )
+    rows = u * u_in if post else u * u_in * c_out
+    out = torch.full((bsz, rows, v), float("nan"), dtype=x.dtype)
+    rc = lib.emu_fused_upsample_mrf(
+        x.data_ptr(), lengths.data_ptr(), s["wt"].data_ptr(), s["bt"].data_ptr(),
+        s["wm"].data_ptr(), s["bm"].data_ptr(), s["wpost"].data_ptr() if post else None,
+        out.data_ptr(), bsz, V._int_array(cfg["args"]), len(cfg["args"]),
+        DTYPES[x.dtype], V._int_array(cfg["plan"]), len(cfg["plan"]), cfg["smem"],
+    )
+    assert rc == 0
+    return out, cfg["tile"]
+
+
+def _plain_stage(x, lengths, s, *, u, u_in, rb, post):
+    ks, ds = RB[rb]
+    return V.fused_upsample_mrf_plain(
+        x, lengths, s["wt"], s["bt"], s["wm"], s["bm"], s["wpost"] if post else None,
+        u=u, u_in=u_in, q0=s["q0"], kernel_sizes=ks, dilation_sizes=ds,
+        resblock_type=rb, post=post,
+    )
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "u,k,c_in,c_out,rb,post",
+    [(8, 16, 48, 32, "2", False), (4, 8, 32, 16, "2", True), (2, 4, 16, 8, "1", True)],
+)
+def test_fused_stage_source_matches_plain(emu, u, k, c_in, c_out, rb, post, dtype):
+    rng = np.random.default_rng(1)
+    v = max(40, 256 // u)  # enough samples for more than one tile size
+    lengths = torch.tensor([v * u, (v - 7) * u, 5 * u - 3], dtype=torch.int32)
+    x = torch.from_numpy(rng.standard_normal((3, c_in, v)).astype(np.float32))
+    x = (x * (torch.arange(v)[None, None] < (lengths // u)[:, None, None])).to(dtype)
+    s = _stage_weights(rng, u, k, c_in, c_out, rb, dtype)
+    ref = _plain_stage(x, lengths, s, u=u, u_in=1, rb=rb, post=post)
+    tiles = set()
+    for n_sm in (1, 32):
+        got, tile = _emu_stage(emu, x, lengths, s, u=u, u_in=1, rb=rb, post=post, n_sm=n_sm)
+        tiles.add(tile)
+        np.testing.assert_allclose(got.float().numpy(), ref.float().numpy(), atol=TOL[dtype][0], rtol=TOL[dtype][1])
+    assert len(tiles) > 1, tiles
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_stage_chain_source_matches_plain(emu, dtype):
+    """Stage u=8 -> planes -> stage u=4 with u_in=8 and conv_post."""
+    rng = np.random.default_rng(2)
+    v = 24
+    frames = torch.tensor([24, 17, 3], dtype=torch.int32)
+    x = torch.from_numpy(rng.standard_normal((3, 32, v)).astype(np.float32))
+    x = (x * (torch.arange(v)[None, None] < frames[:, None, None])).to(dtype)
+    s1 = _stage_weights(rng, 8, 16, 32, 16, "2", dtype)
+    s2 = _stage_weights(rng, 4, 8, 16, 8, "2", dtype)
+    ref = _plain_stage(x, frames * 8, s1, u=8, u_in=1, rb="2", post=False)
+    ref = _plain_stage(ref, frames * 32, s2, u=4, u_in=8, rb="2", post=True)
+    for n_sm in (1, 32):
+        y, _ = _emu_stage(emu, x, frames * 8, s1, u=8, u_in=1, rb="2", post=False, n_sm=n_sm)
+        got, _ = _emu_stage(emu, y, frames * 32, s2, u=4, u_in=8, rb="2", post=True, n_sm=n_sm)
+        np.testing.assert_allclose(got.float().numpy(), ref.float().numpy(), atol=TOL[dtype][0], rtol=TOL[dtype][1])

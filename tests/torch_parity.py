@@ -1,0 +1,72 @@
+"""Shared helpers of the tests that hold the PyTorch port against the JAX
+package (tests/test_torch_*.py): small configurations, one parameter
+tree made by the JAX initialisers and handed to both packages as numpy,
+and the conversions between them.
+
+Tolerances start from piper_tpu's own tests: atol 2e-5 / rtol 1e-4 at
+module level, 2e-4 for fused vocoder stages.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import jax
+import numpy as np
+import torch
+
+from piper_tpu.config import AudioConfig, ModelConfig
+from piper_tpu_torch.config import AudioConfig as TAudioConfig
+from piper_tpu_torch.config import ModelConfig as TModelConfig
+
+ATOL, RTOL = 2e-5, 1e-4
+
+# The medium preset's generator shape (rates 8-8-4, kernels 16-16-8,
+# resblock "2" with kernels 3-5-7) at narrow widths.
+TINY = ModelConfig(
+    num_symbols=64, inter_channels=32, hidden_channels=32, filter_channels=64,
+    n_heads=2, n_layers=2, upsample_initial_channel=64,
+    audio=AudioConfig(sample_rate=16000),
+)
+TINY_MS = dataclasses.replace(TINY, num_speakers=3, gin_channels=16)
+
+
+def tcfg(cfg: ModelConfig) -> TModelConfig:
+    """The port's copy of a JAX ModelConfig."""
+    d = dataclasses.asdict(cfg)
+    d["audio"] = TAudioConfig(**d["audio"])
+    return TModelConfig(**d)
+
+
+def np_tree(tree):
+    return jax.tree.map(lambda a: np.asarray(a), tree)
+
+
+def jax_params(cfg: ModelConfig, seed: int = 0):
+    from piper_tpu.models.vits.model import init_synthesizer_params
+
+    return np_tree(init_synthesizer_params(jax.random.PRNGKey(seed), cfg))
+
+
+def port_params(tree, cfg: ModelConfig, dtype=torch.float32):
+    from piper_tpu_torch.weights.bridge import params_from_jax
+
+    return params_from_jax(tree, tcfg(cfg), "cpu", dtype)
+
+
+def t(a, dtype=None) -> torch.Tensor:
+    out = torch.from_numpy(np.array(a))  # a writable copy
+    return out if dtype is None else out.to(dtype)
+
+
+def close(got, ref, atol=ATOL, rtol=RTOL, what=""):
+    got = got.detach().float().numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
+    np.testing.assert_allclose(got, np.asarray(ref, np.float32), atol=atol, rtol=rtol, err_msg=what)
+
+
+def normal(rng, shape, scale=1.0):
+    return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+
+def mask_np(lengths, t):
+    return (np.arange(t)[None, :] < np.asarray(lengths)[:, None]).astype(np.float32)[..., None]
