@@ -5,11 +5,14 @@
 
 Phases (any failure makes the exit code non-zero):
   1. the card (nvidia-smi name and power limit), torch and CUDA versions,
-     and the build of the CUDA kernels from piper_tpu_torch/csrc/;
+     the build of the CUDA kernels from piper_tpu_torch/csrc/, and the
+     bf16 fused_upsample_mrf's SASS (cuobjdump), which must hold HMMA
+     (tensor-core) instructions;
   2. each kernel against its plain PyTorch version on the card, at the
      medium voice's shapes with ragged lengths, in float32 and bfloat16,
      with its time beside the plain version's, a cuDNN composition of
-     the same stage and the card's bound;
+     the same stage and the card's bound (fused_upsample_mrf also per
+     stage, each against the cuDNN composition of that stage alone);
   3. the main path through the CLI entry point
      (python -m piper_tpu_torch --batch --seed 1 on a random-weight
      medium voice): WAV checks, determinism, a row alone vs in a batch,
@@ -27,6 +30,7 @@ import contextlib
 import io
 import json
 import math
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -153,6 +157,25 @@ def work_mrf(cfg, c, n_valid):
     return 2 * taps * c * c * n_valid
 
 
+def sass_tensor_cores(V) -> None:
+    """Phase 1: the bf16 fused_upsample_mrf kernel's SASS holds HMMA."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    lib = V._lib_path("fused_upsample_mrf")
+    res = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True, timeout=300)
+    funcs, name = {}, None
+    for line in res.stdout.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            funcs[name] = 0
+        elif name is not None and "HMMA" in line:
+            funcs[name] += 1
+    for fn, n in funcs.items():
+        print(f"  SASS {fn}: {n} HMMA")
+    tc = [n for fn, n in funcs.items() if "fused_stage_tc_kernel" in fn]
+    check(res.returncode == 0 and len(tc) == 1 and tc[0] > 0,
+          "bf16 fused_upsample_mrf (fused_stage_tc_kernel) runs mma.sync: HMMA in its SASS")
+
+
 def phase_kernels(cfg, params_np, peaks):
     """Each kernel against its plain version at the medium voice's
     shapes; returns the per-kernel numbers of the main path's dtype."""
@@ -225,18 +248,36 @@ def phase_kernels(cfg, params_np, peaks):
             ms1 = time_ms(lambda: stage1(V.fused_upsample_mrf, x1))
             ms2 = time_ms(lambda: stage2(V.fused_upsample_mrf, y_k))
             plain12 = time_ms(lambda: stage2(V.fused_upsample_mrf_plain, stage1(V.fused_upsample_mrf_plain, x1)), reps=3)
-            lib12 = time_ms(lambda: lib_stage(
-                dec["ups"][2], dec["resblocks"][2], dec["conv_post"]["w"],
-                lib_stage(dec["ups"][1], dec["resblocks"][1], None, x1, lens1, u1, k1, cfg),
-                lens2, u2, k2, cfg))
+
+            def lib1():
+                return lib_stage(dec["ups"][1], dec["resblocks"][1], None, x1, lens1, u1, k1, cfg)
+
+            def lib2(y):
+                return lib_stage(dec["ups"][2], dec["resblocks"][2], dec["conv_post"]["w"], y, lens2, u2, k2, cfg)
+
+            y_lib = lib1()
+            lib12 = time_ms(lambda: lib2(lib1()))
+            lib_s1 = time_ms(lib1)
+            lib_s2 = time_ms(lambda: lib2(y_lib))
             c1, c2 = c0 // 2, c0 // 4
             n1, n2 = int(lens1.sum()), int(lens2.sum())
-            flops12 = (2 * (k1 // u1) * c0 * c1 * n1 + work_mrf(cfg, c1, n1)
-                       + 2 * (k2 // u2) * c1 * c2 * n2 + work_mrf(cfg, c2, n2) + 2 * 7 * c2 * n2)
-            bytes12 = (x1.numel() + 2 * y_k.numel() + w_k.numel() + tm["ups"][1].numel()
-                       + tm["ups"][2].numel() + w1[0].numel() + w2[0].numel()
-                       + tm["post"].numel()) * esize + 4 * (w1[1].numel() + w2[1].numel() + c1 + c2)
+            flops1 = 2 * (k1 // u1) * c0 * c1 * n1 + work_mrf(cfg, c1, n1)
+            flops2 = 2 * (k2 // u2) * c1 * c2 * n2 + work_mrf(cfg, c2, n2) + 2 * 7 * c2 * n2
+            flops12 = flops1 + flops2
+            bytes1 = (x1.numel() + y_k.numel() + tm["ups"][1].numel() + w1[0].numel()) * esize + 4 * (
+                w1[1].numel() + c1)
+            bytes2 = (y_k.numel() + w_k.numel() + tm["ups"][2].numel() + w2[0].numel()
+                      + tm["post"].numel()) * esize + 4 * (w2[1].numel() + c2)
+            bytes12 = bytes1 + bytes2
         peak = f32_peak if dtype == torch.float32 else bf16_peak
+        for sname, ms, lib, flops, nbytes in (("stage 1", ms1, lib_s1, flops1, bytes1),
+                                              ("stage 2", ms2, lib_s2, flops2, bytes2)):
+            bound = max(flops / peak, nbytes / bw) * 1e3
+            print(f"fused_upsample_mrf {sname} {dname}: kernel {ms:.3f} ms, cuDNN composition of the stage "
+                  f"{lib:.3f} ms, bound {bound:.4f} ms, {flops / ms / 1e9:.2f} TFLOP/s achieved, "
+                  f"{100 * bound / ms:.2f}% of the bound", flush=True)
+        print(f"fused_upsample_mrf {dname}: stages 1+2 kernel {ms1 + ms2:.3f} ms vs cuDNN composition "
+              f"{lib12:.3f} ms ({'faster' if ms1 + ms2 < lib12 else 'SLOWER'})", flush=True)
         for kname, ms, plain, lib, flops, nbytes, err, src, rep in (
             ("mrf_fused", ms0, plain0, lib0, flops0, bytes0, err0,
              "piper_tpu_torch/csrc/mrf_fused.cu", "piper_tpu/ops/pallas/vocoder.py:286"),
@@ -454,8 +495,9 @@ def main() -> int:
     print(f"kernel build (nvcc, both sources in parallel): {time.perf_counter() - t0:.2f} s")
     for n, log in V.BUILD_LOG.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
+            if "registers" in line or "spill" in line or "smem" in line or "Compiling entry" in line:
                 print(f"  {n}: {line.strip()}")
+    sass_tensor_cores(V)
 
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)

@@ -19,8 +19,8 @@
 // What bounds it on an H100: arithmetic. Stage 1 of the medium voice costs
 // about 17.8 MFLOP per input frame against 2*128 bytes read and 2*8*64
 // written, stage 2 (with conv_post) about 17.9 MFLOP against 2*8*64 read
-// and 2*32 written: both far above the balance point, so the FMA rate is
-// the bound.
+// and 2*32 written: both far above the balance point, so the matrix rate
+// is the bound.
 //
 // What the design does about it: one block per (row, tile of output
 // samples). The TPU kernel computes in the phase-plane layout because
@@ -30,17 +30,34 @@
 // the chain's halo: 45 + 3 samples each side on stage 2) is loaded once;
 // the transposed conv's output, the residual stream and the conv inputs
 // stay in shared memory through the whole chain and conv_post, so device
-// memory sees one read of x and one write of the planes. Weights stream
-// from L2 as in mrf_fused.cu; plain f32 FMAs on the CUDA cores.
+// memory sees one read of x and one write of the planes.
+//
+// Two bodies:
+//  - bfloat16 (stage_block_tc, the serving precision): every conv runs on
+//    the tensor cores as an implicit GEMM (tc_common.cuh::gemm, mma.sync
+//    m16n8k16) over position-major windows ([position][channel], rows
+//    padded to 16 channels + 8 so ldmatrix is free of bank conflicts). A
+//    dilated tap is a row shift of the A operand. Each tap's weights are
+//    staged in shared memory with cp.async, double-buffered. The polyphase
+//    transposed conv is one GEMM per output phase over the window's input
+//    frames, its rows scattered to the phase's positions. Each chain conv
+//    computes only the rows the rest of the chain still needs (the halo
+//    shrinks by the conv's reach), and its epilogue adds the bias, rounds,
+//    adds the residual and writes the next conv's masked lrelu input. The
+//    rounding points are the plain version's. conv_post (C -> 1) stays on
+//    the CUDA cores.
+//  - float32 (stage_block, parity precision): f32 FMAs on the CUDA cores,
+//    weights streamed from L2 as in mrf_fused.cu.
 #include "mrf_common.cuh"
+#include "tc_common.cuh"
 
 namespace pt {
 
 // y[co][i] = mask(bt[co] + sum_qi sum_ci wt[p][qi][ci][co] * in[ci][v + q0 + qi - s_lo])
 // for window position i (sample t = org + i, v = floor(t / u), p = t - u*v).
-template <typename T>
-PT_DEVICE void tconv_phase(int tid, const T* in, int ld_in, int s_lo, T* y, int c_in, int c_out, int w, int org,
-                           int u, int q0, int nq, int len, const T* wt, const float* bt) {
+PT_DEVICE void tconv_phase(int tid, const float* in, int ld_in, int s_lo, float* y, int c_in, int c_out, int w,
+                           int org, int u, int q0, int nq, int len, const float* wt, const float* bt) {
+  using T = float;
   PassMap m = pass_map(tid, c_out);
   if (!m.active) return;
   const int span = m.lanes * kTPer;
@@ -95,14 +112,15 @@ struct StageArgs {
   int u, u_in, q0, nq;       // upsample, input planes, polyphase taps
   int post, k_post;          // conv_post epilogue
   int tile, halo, hpost;     // output samples per block, total halo, post halo
-  int margin, ld_in;         // conv-input margin, input-window row length
+  int margin, ld_in;         // float32 body: conv-input margin, input-window row length
 };
 
-template <typename T>
-PT_DEVICE void stage_block(const T* __restrict__ x, const int* __restrict__ lengths, const T* __restrict__ wt,
-                           const float* __restrict__ bt, const T* __restrict__ wm, const float* __restrict__ bm,
-                           const T* __restrict__ wpost, T* __restrict__ out, const StageArgs& s, const MrfPlan& plan,
-                           int bx, int by, char* smem) {
+// The float32 body: f32 FMAs on the CUDA cores over channel-major windows.
+PT_DEVICE void stage_block(const float* __restrict__ x, const int* __restrict__ lengths,
+                           const float* __restrict__ wt, const float* __restrict__ bt, const float* __restrict__ wm,
+                           const float* __restrict__ bm, const float* __restrict__ wpost, float* __restrict__ out,
+                           const StageArgs& s, const MrfPlan& plan, int bx, int by, char* smem) {
+  using T = float;
   const int c = s.c_out, u_out = s.u * s.u_in;
   const int w = s.tile + 2 * s.halo;
   const int lda = w + 2 * s.margin;
@@ -206,33 +224,253 @@ PT_DEVICE void stage_block(const T* __restrict__ x, const int* __restrict__ leng
   }
 }
 
+// Shared-memory layout of the bf16 body, in bf16 elements; every region
+// starts on 16 bytes. ops/cuda/vocoder.py::fused_smem_bytes_tc mirrors it.
+struct TcLayout {
+  int cp, ldc, cip, ldi, w, xs_w, n_fr, in_rows, kw_rows;
+  size_t a0, a1, h, y, xs, in, wb, wb_stride, bytes;
+};
+
+PT_HD TcLayout tc_layout(const StageArgs& s) {
+  TcLayout L;
+  L.cp = (s.c_out + 15) / 16 * 16;
+  L.ldc = L.cp + 8;  // 16*(odd) bytes per row: ldmatrix rows hit distinct banks
+  L.cip = (s.c_in + 15) / 16 * 16;
+  L.ldi = L.cip + 8;
+  L.w = s.tile + 2 * s.halo;
+  L.xs_w = s.tile + 2 * s.hpost;
+  L.n_fr = (L.w + s.u - 2) / s.u + 1;  // most input frames a window spans
+  L.in_rows = (L.n_fr + 15) / 16 * 16 + s.nq;
+  L.kw_rows = L.cip > L.cp ? L.cip : L.cp;
+  size_t o = 0;
+  L.a0 = o;
+  o += (size_t)(L.w + 16) * L.ldc;  // + 16 rows: a tile's reads past the range
+  L.a1 = o;
+  o += (size_t)(L.w + 16) * L.ldc;
+  L.h = o;
+  o += (size_t)L.w * L.ldc;
+  L.y = o;
+  o += (size_t)L.w * L.ldc;
+  L.xs = o;
+  o += (size_t)L.xs_w * L.ldc;
+  L.in = o;
+  o += (size_t)L.in_rows * L.ldi;
+  L.wb = o;
+  L.wb_stride = (size_t)L.kw_rows * L.ldc;
+  o += 2 * L.wb_stride;
+  L.bytes = 2 * o;
+  return L;
+}
+
+// 0 if the bf16 body can run these arguments in smem_bytes, else -3.
+PT_HD int tc_check(const StageArgs& s, int smem_bytes) {
+  const TcLayout L = tc_layout(s);
+  const int rows = L.w > L.n_fr ? L.w : L.n_fr;
+  if ((rows + 15) / 16 * (L.cp / 16) > kWarps * kMI) return -3;
+  if (s.c_out % 4 || (size_t)smem_bytes < L.bytes) return -3;
+  return 0;
+}
+
+PT_DEVICE float lrelu(float v, float slope) { return v >= 0.f ? v : v * slope; }
+PT_DEVICE float round_bf16(float v) { return to_f(from_f<pt_bf16>(v)); }
+
+PT_DEVICE void stage_block_tc(const pt_bf16* __restrict__ x, const int* __restrict__ lengths,
+                              const pt_bf16* __restrict__ wt, const float* __restrict__ bt,
+                              const pt_bf16* __restrict__ wm, const float* __restrict__ bm,
+                              const pt_bf16* __restrict__ wpost, pt_bf16* __restrict__ out, const StageArgs& s,
+                              const MrfPlan& plan, int bx, int by, char* smem) {
+  const TcLayout L = tc_layout(s);
+  const int c = s.c_out, u_out = s.u * s.u_in, w = L.w, ldc = L.ldc;
+  const int xs_off = s.halo - s.hpost;
+  const int b = by;
+  const int t0 = bx * s.tile;
+  const int len = min(PT_LDG(lengths + b), s.v * u_out);
+  const int in_len = min(len / s.u, s.v * s.u_in);  // valid input samples
+  const int org = t0 - s.halo;
+  const int v_lo = max(0, -org), v_hi = max(0, min(w, len - org));
+  const int vb = floor_div(org, s.u);
+  const int n_fr = floor_div(org + w - 1, s.u) - vb + 1;
+  const int s_lo = vb + s.q0, s_hi = s_lo + n_fr + s.nq - 2;
+  const pt_bf16 zero = from_f<pt_bf16>(0.f);
+
+  pt_bf16* base = reinterpret_cast<pt_bf16*>(smem);
+  pt_bf16* a[2] = {base + L.a0, base + L.a1};
+  pt_bf16* h = base + L.h;
+  pt_bf16* y = base + L.y;
+  pt_bf16* xs = base + L.xs;
+  pt_bf16* in = base + L.in;
+  pt_bf16* wb = base + L.wb;
+
+  // zero everything: padded channels and weight columns stay zero
+  PT_THREADS(tid) {
+    for (size_t e = tid; e < L.bytes / 16; e += kThreads) zero16(smem + 16 * e);
+  }
+  PT_SYNC();
+  // input window: samples [s_lo, s_hi], masked, lrelu_0.1, position-major;
+  // read frame-fastest so neighbouring threads read neighbouring frames
+  const pt_bf16* xrow = x + (size_t)b * s.u_in * s.c_in * s.v;
+  const int fr_lo = floor_div(s_lo, s.u_in), n_fr_in = floor_div(s_hi, s.u_in) - fr_lo + 1;
+  PT_THREADS(tid) {
+    for (int e = tid; e < s.c_in * s.u_in * n_fr_in; e += kThreads) {
+      int ci = e / (s.u_in * n_fr_in), r = e - ci * (s.u_in * n_fr_in);
+      int p1 = r / n_fr_in, f = fr_lo + (r - p1 * n_fr_in);
+      int smp = f * s.u_in + p1;
+      if (smp < s_lo || smp > s_hi) continue;
+      float v = 0.f;
+      if (smp >= 0 && smp < in_len) v = lrelu(to_f(xrow[((size_t)p1 * s.c_in + ci) * s.v + f]), 0.1f);
+      in[(size_t)(smp - s_lo) * L.ldi + ci] = from_f<pt_bf16>(v);
+    }
+  }
+  PT_SYNC();
+
+  // polyphase transposed conv, one GEMM per output phase p: frame row j
+  // (input sample vb + j) reads in rows j + qi; it lands on window row
+  // u*(vb + j) + p - org
+  for (int p = 0; p < s.u; ++p) {
+    Gemm g{in, L.ldi, 0, n_fr, 1, 0, L.cip / 16, L.cp / 16,
+           wt + (size_t)p * s.nq * s.c_in * c, (size_t)s.c_in * c, s.c_in, c, s.nq};
+    gemm(g, wb, ldc, L.wb_stride, [&](int j, int col, float v0, float v1) {
+      const int i = s.u * (vb + j) + p - org;
+      if (i < 0 || i >= w) return;
+      const bool ok = org + i >= 0 && org + i < len;
+      y[(size_t)i * ldc + col] = ok ? from_f<pt_bf16>(v0 + PT_LDG(bt + col)) : zero;
+      y[(size_t)i * ldc + col + 1] = ok ? from_f<pt_bf16>(v1 + PT_LDG(bt + col + 1)) : zero;
+    });
+    PT_SYNC();
+  }
+
+  // MRF chain. Conv j of a resblock computes the rows the rest of the
+  // resblock still reads: [xs_off - E, xs_off + xs_w + E), E = the reach
+  // of the convs after it; its input covers the previous conv's rows.
+  int conv = 0;
+  for (int r = 0; r < plan.n_res; ++r) {
+    PT_THREADS(tid) {
+      for (int e = tid; e < w * c; e += kThreads) {
+        const int i = e / c, ch = e - i * c;
+        const pt_bf16 yv = y[(size_t)i * ldc + ch];
+        h[(size_t)i * ldc + ch] = yv;
+        a[0][(size_t)i * ldc + ch] = (i >= v_lo && i < v_hi) ? from_f<pt_bf16>(lrelu(to_f(yv), 0.1f)) : zero;
+      }
+    }
+    PT_SYNC();
+    int reach = 0;
+    for (int j = 0; j < plan.n_steps[r]; ++j) reach += (plan.k[conv + j] * plan.d[conv + j] - plan.d[conv + j]) / 2;
+    int cur = 0;
+    for (int j = 0; j < plan.n_steps[r]; ++j, ++conv) {
+      const int k = plan.k[conv], d = plan.d[conv], pad = (k * d - d) / 2;
+      reach -= pad;
+      const bool inner = plan.rb1 && (j % 2 == 0);  // resblock "1": conv before the residual add
+      const bool last = j == plan.n_steps[r] - 1;
+      const float* bias = bm + (size_t)conv * c;
+      pt_bf16* nxt = a[cur ^ 1];
+      Gemm g{a[cur], ldc, xs_off - reach, L.xs_w + 2 * reach, d, -pad, L.cp / 16, L.cp / 16,
+             wm + (size_t)conv * plan.k_max * c * c, (size_t)c * c, c, c, k};
+      gemm(g, wb, ldc, L.wb_stride, [&](int i, int col, float v0, float v1) {
+        const bool ok = i >= v_lo && i < v_hi;
+        for (int q = 0; q < 2; ++q) {
+          const size_t e = (size_t)i * ldc + col + q;
+          const float v = round_bf16((q ? v1 : v0) + PT_LDG(bias + col + q));
+          if (inner) {
+            nxt[e] = ok ? from_f<pt_bf16>(lrelu(v, 0.1f)) : zero;
+            continue;
+          }
+          const float hn = round_bf16(to_f(h[e]) + v);
+          h[e] = from_f<pt_bf16>(hn);
+          if (last) {
+            const size_t ex = (size_t)(i - xs_off) * ldc + col + q;
+            xs[ex] = from_f<pt_bf16>(to_f(xs[ex]) + (ok ? hn : 0.f));
+          } else {
+            nxt[e] = ok ? from_f<pt_bf16>(lrelu(hn, 0.1f)) : zero;
+          }
+        }
+      });
+      PT_SYNC();
+      cur ^= 1;
+    }
+  }
+
+  const float n_res = (float)plan.n_res;
+  const int nf = s.tile / u_out;  // frames per tile (tile % u_out == 0)
+  const int f0 = t0 / u_out;
+  pt_bf16* orow = out + (size_t)b * (s.post ? 1 : c) * u_out * s.v;
+  if (!s.post) {
+    // write (plane, channel, frame) with the frame fastest: coalesced rows
+    PT_THREADS(tid) {
+      for (int e = tid; e < c * s.tile; e += kThreads) {
+        int ch = e / s.tile, r = e - ch * s.tile;
+        int pl = r / nf, f = r - pl * nf;
+        int j = f * u_out + pl;
+        if (f0 + f < s.v)
+          orow[((size_t)pl * c + ch) * s.v + f0 + f] = from_f<pt_bf16>(to_f(xs[(size_t)j * ldc + ch]) / n_res);
+      }
+    }
+    return;
+  }
+  // conv_post: g = mask(lrelu_0.01(bf16(xs / n_res))) into a[0], then
+  // C -> 1 taps on the CUDA cores
+  PT_THREADS(tid) {
+    for (int e = tid; e < L.xs_w * c; e += kThreads) {
+      const int j = e / c, ch = e - j * c, i = xs_off + j;
+      const float g = lrelu(round_bf16(to_f(xs[(size_t)j * ldc + ch]) / n_res), 0.01f);
+      a[0][(size_t)j * ldc + ch] = (i >= v_lo && i < v_hi) ? from_f<pt_bf16>(g) : zero;
+    }
+  }
+  PT_SYNC();
+  PT_THREADS(tid) {
+    for (int r = tid; r < s.tile; r += kThreads) {
+      int pl = r / nf, f = r - pl * nf;
+      int j = f * u_out + pl;
+      int t = t0 + j;
+      if (f0 + f >= s.v) continue;
+      float acc = 0.f;
+      for (int kk = 0; kk < s.k_post; ++kk) {
+        const pt_bf16* ar = a[0] + (size_t)(j + kk) * ldc;
+        const pt_bf16* wp = wpost + kk * c;
+        for (int ch = 0; ch < c; ++ch) acc = fmaf(to_f(PT_LDG(wp + ch)), to_f(ar[ch]), acc);
+      }
+      orow[(size_t)pl * s.v + f0 + f] = from_f<pt_bf16>(t < len ? tanhf(acc) : 0.f);
+    }
+  }
+}
+
 }  // namespace pt
 
 #ifndef PT_HOST_EMULATION
-template <typename T>
+// float32: the CUDA-core body
 __global__ void __launch_bounds__(pt::kThreads)
-    fused_stage_kernel(const T* x, const int* lengths, const T* wt, const float* bt, const T* wm, const float* bm,
-                       const T* wpost, T* out, pt::StageArgs s, pt::MrfPlan plan) {
+    fused_stage_kernel(const float* x, const int* lengths, const float* wt, const float* bt, const float* wm,
+                       const float* bm, const float* wpost, float* out, pt::StageArgs s, pt::MrfPlan plan) {
   extern __shared__ __align__(16) char smem[];
-  pt::stage_block<T>(x, lengths, wt, bt, wm, bm, wpost, out, s, plan, blockIdx.x, blockIdx.y, smem);
+  pt::stage_block(x, lengths, wt, bt, wm, bm, wpost, out, s, plan, blockIdx.x, blockIdx.y, smem);
+}
+
+// bfloat16: the tensor-core body (one block per SM, up to 255 registers)
+__global__ void __launch_bounds__(pt::kThreads, 1)
+    fused_stage_tc_kernel(const pt_bf16* x, const int* lengths, const pt_bf16* wt, const float* bt,
+                          const pt_bf16* wm, const float* bm, const pt_bf16* wpost, pt_bf16* out, pt::StageArgs s,
+                          pt::MrfPlan plan) {
+  extern __shared__ __align__(16) char smem[];
+  pt::stage_block_tc(x, lengths, wt, bt, wm, bm, wpost, out, s, plan, blockIdx.x, blockIdx.y, smem);
 }
 
 template <typename T>
-static int launch(const void* x, const void* lengths, const void* wt, const void* bt, const void* wm, const void* bm,
+static int launch(void (*kernel)(const T*, const int*, const T*, const float*, const T*, const float*, const T*, T*,
+                                 pt::StageArgs, pt::MrfPlan),
+                  const void* x, const void* lengths, const void* wt, const void* bt, const void* wm, const void* bm,
                   const void* wpost, void* out, int batch, const pt::StageArgs& s, const pt::MrfPlan& plan,
                   int smem_bytes, cudaStream_t stream) {
-  cudaError_t err =
-      cudaFuncSetAttribute(fused_stage_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return (int)err;
   const int n_out = s.v * s.u * s.u_in;
   dim3 grid((n_out + s.tile - 1) / s.tile, batch);
-  fused_stage_kernel<T><<<grid, pt::kThreads, smem_bytes, stream>>>(
-      (const T*)x, (const int*)lengths, (const T*)wt, (const float*)bt, (const T*)wm, (const float*)bm,
-      (const T*)wpost, (T*)out, s, plan);
+  kernel<<<grid, pt::kThreads, smem_bytes, stream>>>((const T*)x, (const int*)lengths, (const T*)wt,
+                                                     (const float*)bt, (const T*)wm, (const float*)bm,
+                                                     (const T*)wpost, (T*)out, s, plan);
   return (int)cudaGetLastError();
 }
 
-// Returns 0 or a cudaError_t (-1: bad plan, -2: bad dtype).
+// Returns 0 or a cudaError_t (-1: bad plan, -2: bad dtype, -3: the bf16
+// layout does not fit smem_bytes or the warps' tiles).
 extern "C" int pt_fused_upsample_mrf(const void* x, const void* lengths, const void* wt, const void* bt,
                                      const void* wm, const void* bm, const void* wpost, void* out, int batch,
                                      const int* args, int n_args, int dtype, const int* plan_ints, int n_plan,
@@ -243,8 +481,13 @@ extern "C" int pt_fused_upsample_mrf(const void* x, const void* lengths, const v
   pt::StageArgs s{args[0], args[1], args[2], args[3],  args[4],  args[5],  args[6],
                   args[7], args[8], args[9], args[10], args[11], args[12], args[13]};
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0) return launch<float>(x, lengths, wt, bt, wm, bm, wpost, out, batch, s, plan, smem_bytes, st);
-  if (dtype == 1) return launch<pt_bf16>(x, lengths, wt, bt, wm, bm, wpost, out, batch, s, plan, smem_bytes, st);
+  if (dtype == 0)
+    return launch<float>(fused_stage_kernel, x, lengths, wt, bt, wm, bm, wpost, out, batch, s, plan, smem_bytes, st);
+  if (dtype == 1) {
+    if (int rc = pt::tc_check(s, smem_bytes)) return rc;
+    return launch<pt_bf16>(fused_stage_tc_kernel, x, lengths, wt, bt, wm, bm, wpost, out, batch, s, plan,
+                           smem_bytes, st);
+  }
   return -2;
 }
 #endif

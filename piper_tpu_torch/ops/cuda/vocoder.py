@@ -42,7 +42,7 @@ LRELU_SLOPE = 0.1
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "piper_tpu_torch"
 SOURCES = {"mrf_fused": "mrf_fused.cu", "fused_upsample_mrf": "fused_upsample_mrf.cu"}
-HEADERS = ("mrf_common.cuh",)
+HEADERS = ("mrf_common.cuh", "tc_common.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -50,6 +50,7 @@ NVCC_FLAGS = (
 
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use (H100)
 THREADS = 256  # threads per block (csrc/mrf_common.cuh: kThreads)
+TC_TILES = 8 * 12  # (16-row, 16-column) GEMM tiles a block holds (kWarps * kMI)
 MAX_TILE = 4096
 
 
@@ -159,11 +160,42 @@ def _ld_in(w: int, u: int, nq: int) -> int:
     return (w + u - 1) // u + nq + 1
 
 
-def _pick_tile(smem_of, unit: int, n: int, rows: int, n_sm: int) -> int:
-    """Largest tile (a multiple of `unit`) whose block fits shared memory,
-    then halved while the grid would leave SMs idle. 0 if none fits."""
+def _r16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def fused_smem_bytes_tc(c_in, c_out, u, nq, tile, halo, hpost) -> int:
+    """Bytes of shared memory the bf16 tensor-core body of
+    fused_upsample_mrf.cu takes (csrc/fused_upsample_mrf.cu::tc_layout):
+    position-major rows of round16(C) + 8 bf16 for the two conv inputs
+    (+16 rows each), the residual stream, the transposed conv's output and
+    the resblock sum; the input window; two weight-slice buffers."""
+    ldc, ldi = _r16(c_out) + 8, _r16(c_in) + 8
+    w = tile + 2 * halo
+    n_fr = (w + u - 2) // u + 1
+    n = (
+        ldc * (2 * (w + 16) + 2 * w + tile + 2 * hpost)
+        + ldi * (_r16(n_fr) + nq)
+        + 2 * max(_r16(c_in), _r16(c_out)) * ldc
+    )
+    return 2 * n
+
+
+def fused_tc_fits(c_in, c_out, u, nq, tile, halo, hpost) -> bool:
+    """Whether the bf16 body runs this tile: its layout fits shared memory
+    and each GEMM's (16-row, 16-column) tiles fit the block's warps."""
+    w = tile + 2 * halo
+    return (
+        -(-w // 16) * (_r16(c_out) // 16) <= TC_TILES
+        and fused_smem_bytes_tc(c_in, c_out, u, nq, tile, halo, hpost) <= SMEM_LIMIT
+    )
+
+
+def _pick_tile(fits, unit: int, n: int, rows: int, n_sm: int) -> int:
+    """Largest tile (a multiple of `unit`) that `fits`, then halved while
+    the grid would leave SMs idle. 0 if none fits."""
     tile = min(MAX_TILE, -(-n // unit) * unit)
-    while tile >= unit and smem_of(tile) > SMEM_LIMIT:
+    while tile >= unit and not fits(tile):
         tile -= unit
     if tile < unit:
         return 0
@@ -218,7 +250,7 @@ def mrf_launch_config(
     def smem(tl):
         return mrf_smem_bytes(c, tl, halo, margin, rb1, esize)
 
-    tile = _pick_tile(smem, 16, t, b, n_sm)
+    tile = _pick_tile(lambda tl: smem(tl) <= SMEM_LIMIT, 16, t, b, n_sm)
     if tile == 0:
         raise ValueError(f"mrf_fused: C={c} with halo {halo} does not fit shared memory")
     return dict(
@@ -233,7 +265,8 @@ def fused_launch_config(
 ) -> Dict[str, Any]:
     """Stage arguments, plan and shared-memory bytes of one
     fused_upsample_mrf launch (csrc/fused_upsample_mrf.cu::StageArgs).
-    k_post = 0 means no conv_post."""
+    k_post = 0 means no conv_post. esize 2 (bfloat16) sizes the
+    tensor-core body's layout, esize 4 the float32 CUDA-core body's."""
     _, halo = stage_plan(kernel_sizes, dilation_sizes, resblock_type)
     hpost = (k_post - 1) // 2 if k_post else 0
     halo += hpost
@@ -241,10 +274,20 @@ def fused_launch_config(
     u_out = u * u_in
     rb1 = resblock_type == "1"
 
-    def smem(tl):
-        return fused_smem_bytes(c_in, c_out, u, nq, tl, halo, hpost, margin, rb1, esize)
+    if esize == 2:
+        def smem(tl):
+            return fused_smem_bytes_tc(c_in, c_out, u, nq, tl, halo, hpost)
 
-    tile = _pick_tile(smem, u_out * -(-16 // u_out), v * u_out, b, n_sm)
+        def fits(tl):
+            return fused_tc_fits(c_in, c_out, u, nq, tl, halo, hpost)
+    else:
+        def smem(tl):
+            return fused_smem_bytes(c_in, c_out, u, nq, tl, halo, hpost, margin, rb1, esize)
+
+        def fits(tl):
+            return smem(tl) <= SMEM_LIMIT
+
+    tile = _pick_tile(fits, u_out * -(-16 // u_out), v * u_out, b, n_sm)
     if tile == 0:
         raise ValueError("fused_upsample_mrf: this stage does not fit shared memory")
     args = [
@@ -527,6 +570,8 @@ def fused_upsample_mrf(
             raise ValueError("post=True needs wpost")
         k_post = wpost.shape[0]
         _check(wpost, "wpost", dt, (k_post, c_out, 1), dev)
+    if dt == torch.bfloat16 and (wt.data_ptr() % 16 or wm.data_ptr() % 16):
+        raise ValueError("fused_upsample_mrf (bf16) needs wt and wm on 16-byte boundaries")
     cfg = fused_launch_config(
         b, v, c_in, c_out, u, u_in, q0, nq, k_post, kernel_sizes,
         dilation_sizes, resblock_type, k_max, x_tm.element_size(), _n_sm(dev),

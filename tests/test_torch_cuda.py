@@ -97,7 +97,7 @@ def _run(fn, s, x, lengths, u_in, post):
 @pytest.mark.parametrize(
     "u,k,c_in,c_out,rb,post",
     [(8, 16, 128, 64, "2", False), (4, 8, 64, 32, "2", True), (2, 4, 32, 16, "1", True),
-     (8, 16, 48, 24, "1", False)],
+     (8, 16, 48, 24, "1", False), (4, 8, 20, 12, "2", True)],
 )
 def test_fused_upsample_mrf_kernel(dev, u, k, c_in, c_out, rb, post, dtype):
     g = torch.Generator().manual_seed(u * 100 + c_in)
@@ -128,6 +128,50 @@ def test_fused_stage_chain_kernel(dev, rb, dtype):
         y = _run(fn, s1, x, frames * 8, 1, False)
         outs.append(_run(fn, s2, y, frames * 32, 8, True))
     _close(outs[0], outs[1], dtype)
+
+
+def _planes(g, b, rows, v, frames):
+    """Random stage input, zero past each row's frames (as stage outputs are)."""
+    return torch.randn((b, rows, v), generator=g) * (torch.arange(v)[None, None] < frames[:, None, None])
+
+
+@pytest.mark.parametrize("stage", [1, 2])
+def test_fused_upsample_mrf_medium_bf16(dev, stage):
+    """The medium voice's full stage widths in bf16 (the tensor-core body):
+    128 -> 64 with u=8, or 64 -> 32 with u=4, u_in=8 and conv_post; ragged
+    frame counts, none a multiple of a tile."""
+    g = torch.Generator().manual_seed(40 + stage)
+    v = 419
+    frames = torch.tensor([419, 382, 7], dtype=torch.int32)
+    if stage == 1:
+        s, u_in, post, lengths = _stage(g, 8, 16, 128, 64, "2", torch.bfloat16, dev), 1, False, frames * 8
+        x = _planes(g, 3, 128, v, frames)
+    else:
+        s, u_in, post, lengths = _stage(g, 4, 8, 64, 32, "2", torch.bfloat16, dev), 8, True, frames * 32
+        x = _planes(g, 3, 8 * 64, v, frames)
+    x, lengths = x.to(dev, torch.bfloat16), lengths.to(dev)
+    got = _run(V.fused_upsample_mrf, s, x, lengths, u_in, post)
+    _close(got, _run(V.fused_upsample_mrf_plain, s, x, lengths, u_in, post), torch.bfloat16)
+
+
+def test_fused_upsample_mrf_row_alone_equals_row_in_batch(dev):
+    """bf16: a row computed alone (other tiles, other grid) gives the same
+    bits as inside a batch of 3, through both chained stages."""
+    g = torch.Generator().manual_seed(9)
+    v = 157
+    frames = torch.tensor([157, 101, 12], dtype=torch.int32)
+    s1 = _stage(g, 8, 16, 128, 64, "2", torch.bfloat16, dev)
+    s2 = _stage(g, 4, 8, 64, 32, "2", torch.bfloat16, dev)
+    x = _planes(g, 3, 128, v, frames).to(dev, torch.bfloat16)
+    frames = frames.to(dev)
+
+    def both(x, fr):
+        y = _run(V.fused_upsample_mrf, s1, x, fr * 8, 1, False)
+        return _run(V.fused_upsample_mrf, s2, y, fr * 32, 8, True)
+
+    batch = both(x, frames)
+    alone = both(x[1:2].contiguous(), frames[1:2].contiguous())
+    assert torch.equal(alone[0], batch[1])
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
