@@ -6,7 +6,7 @@
 Phases (any failure makes the exit code non-zero):
   1. the card (nvidia-smi name and power limit), torch and CUDA versions,
      the build of the CUDA kernels from piper_tpu_torch/csrc/, and the
-     bf16 fused_upsample_mrf's SASS (cuobjdump), which must hold HMMA
+     SASS of both bf16 kernels (cuobjdump), which must hold HMMA
      (tensor-core) instructions;
   2. each kernel against its plain PyTorch version on the card, at the
      medium voice's shapes with ragged lengths, in float32 and bfloat16,
@@ -158,22 +158,22 @@ def work_mrf(cfg, c, n_valid):
 
 
 def sass_tensor_cores(V) -> None:
-    """Phase 1: the bf16 fused_upsample_mrf kernel's SASS holds HMMA."""
+    """Phase 1: each bf16 kernel's SASS holds HMMA (mma.sync)."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    lib = V._lib_path("fused_upsample_mrf")
-    res = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True, timeout=300)
-    funcs, name = {}, None
-    for line in res.stdout.splitlines():
-        if "Function :" in line:
-            name = line.split("Function :", 1)[1].strip()
-            funcs[name] = 0
-        elif name is not None and "HMMA" in line:
-            funcs[name] += 1
-    for fn, n in funcs.items():
-        print(f"  SASS {fn}: {n} HMMA")
-    tc = [n for fn, n in funcs.items() if "fused_stage_tc_kernel" in fn]
-    check(res.returncode == 0 and len(tc) == 1 and tc[0] > 0,
-          "bf16 fused_upsample_mrf (fused_stage_tc_kernel) runs mma.sync: HMMA in its SASS")
+    for lib, kernel in (("mrf_fused", "mrf_fused_tc_kernel"), ("fused_upsample_mrf", "fused_stage_tc_kernel")):
+        res = subprocess.run([tool, "-sass", str(V._lib_path(lib))], capture_output=True, text=True, timeout=300)
+        funcs, name = {}, None
+        for line in res.stdout.splitlines():
+            if "Function :" in line:
+                name = line.split("Function :", 1)[1].strip()
+                funcs[name] = 0
+            elif name is not None and "HMMA" in line:
+                funcs[name] += 1
+        for fn, n in funcs.items():
+            print(f"  SASS {fn}: {n} HMMA")
+        tc = [n for fn, n in funcs.items() if kernel in fn]
+        check(res.returncode == 0 and len(tc) == 1 and tc[0] > 0,
+              f"bf16 {lib} ({kernel}) runs mma.sync: HMMA in its SASS")
 
 
 def phase_kernels(cfg, params_np, peaks):

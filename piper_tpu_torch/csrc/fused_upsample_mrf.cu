@@ -40,12 +40,13 @@
 //    dilated tap is a row shift of the A operand. Each tap's weights are
 //    staged in shared memory with cp.async, double-buffered. The polyphase
 //    transposed conv is one GEMM per output phase over the window's input
-//    frames, its rows scattered to the phase's positions. Each chain conv
-//    computes only the rows the rest of the chain still needs (the halo
-//    shrinks by the conv's reach), and its epilogue adds the bias, rounds,
-//    adds the residual and writes the next conv's masked lrelu input. The
-//    rounding points are the plain version's. conv_post (C -> 1) stays on
-//    the CUDA cores.
+//    frames, its rows scattered to the phase's positions. The MRF chain is
+//    the one mrf_fused.cu's bf16 body runs (tc_common.cuh::mrf_chain_tc):
+//    each conv computes only the rows the rest of the chain still needs
+//    (the halo shrinks by the conv's reach), and its epilogue adds the
+//    bias, rounds, adds the residual and writes the next conv's masked
+//    lrelu input. The rounding points are the plain version's. conv_post
+//    (C -> 1) stays on the CUDA cores.
 //  - float32 (stage_block, parity precision): f32 FMAs on the CUDA cores,
 //    weights streamed from L2 as in mrf_fused.cu.
 #include "mrf_common.cuh"
@@ -241,7 +242,7 @@ PT_HD TcLayout tc_layout(const StageArgs& s) {
   L.xs_w = s.tile + 2 * s.hpost;
   L.n_fr = (L.w + s.u - 2) / s.u + 1;  // most input frames a window spans
   L.in_rows = (L.n_fr + 15) / 16 * 16 + s.nq;
-  L.kw_rows = L.cip > L.cp ? L.cip : L.cp;
+  L.kw_rows = L.cip > L.cp ? L.cip : L.cp;  // whole taps per GEMM step
   size_t o = 0;
   L.a0 = o;
   o += (size_t)(L.w + 16) * L.ldc;  // + 16 rows: a tile's reads past the range
@@ -270,9 +271,6 @@ PT_HD int tc_check(const StageArgs& s, int smem_bytes) {
   if (s.c_out % 4 || (size_t)smem_bytes < L.bytes) return -3;
   return 0;
 }
-
-PT_DEVICE float lrelu(float v, float slope) { return v >= 0.f ? v : v * slope; }
-PT_DEVICE float round_bf16(float v) { return to_f(from_f<pt_bf16>(v)); }
 
 PT_DEVICE void stage_block_tc(const pt_bf16* __restrict__ x, const int* __restrict__ lengths,
                               const pt_bf16* __restrict__ wt, const float* __restrict__ bt,
@@ -329,7 +327,7 @@ PT_DEVICE void stage_block_tc(const pt_bf16* __restrict__ x, const int* __restri
   for (int p = 0; p < s.u; ++p) {
     Gemm g{in, L.ldi, 0, n_fr, 1, 0, L.cip / 16, L.cp / 16,
            wt + (size_t)p * s.nq * s.c_in * c, (size_t)s.c_in * c, s.c_in, c, s.nq};
-    gemm(g, wb, ldc, L.wb_stride, [&](int j, int col, float v0, float v1) {
+    gemm(g, wb, ldc, L.kw_rows, L.wb_stride, [&](int j, int col, float v0, float v1) {
       const int i = s.u * (vb + j) + p - org;
       if (i < 0 || i >= w) return;
       const bool ok = org + i >= 0 && org + i < len;
@@ -339,55 +337,16 @@ PT_DEVICE void stage_block_tc(const pt_bf16* __restrict__ x, const int* __restri
     PT_SYNC();
   }
 
-  // MRF chain. Conv j of a resblock computes the rows the rest of the
-  // resblock still reads: [xs_off - E, xs_off + xs_w + E), E = the reach
-  // of the convs after it; its input covers the previous conv's rows.
-  int conv = 0;
-  for (int r = 0; r < plan.n_res; ++r) {
-    PT_THREADS(tid) {
-      for (int e = tid; e < w * c; e += kThreads) {
-        const int i = e / c, ch = e - i * c;
-        const pt_bf16 yv = y[(size_t)i * ldc + ch];
-        h[(size_t)i * ldc + ch] = yv;
-        a[0][(size_t)i * ldc + ch] = (i >= v_lo && i < v_hi) ? from_f<pt_bf16>(lrelu(to_f(yv), 0.1f)) : zero;
-      }
+  // MRF chain over the transposed conv's output y
+  const ChainTc m{{a[0], a[1]}, h, xs, wb, L.wb_stride, L.kw_rows, c, L.cp, ldc, w, xs_off, L.xs_w, v_lo, v_hi};
+  mrf_chain_tc(plan, m, wm, bm, [&](int tid) {
+    for (int e = tid; e < w * c; e += kThreads) {
+      const int i = e / c, ch = e - i * c;
+      const pt_bf16 yv = y[(size_t)i * ldc + ch];
+      h[(size_t)i * ldc + ch] = yv;
+      a[0][(size_t)i * ldc + ch] = (i >= v_lo && i < v_hi) ? from_f<pt_bf16>(lrelu(to_f(yv), 0.1f)) : zero;
     }
-    PT_SYNC();
-    int reach = 0;
-    for (int j = 0; j < plan.n_steps[r]; ++j) reach += (plan.k[conv + j] * plan.d[conv + j] - plan.d[conv + j]) / 2;
-    int cur = 0;
-    for (int j = 0; j < plan.n_steps[r]; ++j, ++conv) {
-      const int k = plan.k[conv], d = plan.d[conv], pad = (k * d - d) / 2;
-      reach -= pad;
-      const bool inner = plan.rb1 && (j % 2 == 0);  // resblock "1": conv before the residual add
-      const bool last = j == plan.n_steps[r] - 1;
-      const float* bias = bm + (size_t)conv * c;
-      pt_bf16* nxt = a[cur ^ 1];
-      Gemm g{a[cur], ldc, xs_off - reach, L.xs_w + 2 * reach, d, -pad, L.cp / 16, L.cp / 16,
-             wm + (size_t)conv * plan.k_max * c * c, (size_t)c * c, c, c, k};
-      gemm(g, wb, ldc, L.wb_stride, [&](int i, int col, float v0, float v1) {
-        const bool ok = i >= v_lo && i < v_hi;
-        for (int q = 0; q < 2; ++q) {
-          const size_t e = (size_t)i * ldc + col + q;
-          const float v = round_bf16((q ? v1 : v0) + PT_LDG(bias + col + q));
-          if (inner) {
-            nxt[e] = ok ? from_f<pt_bf16>(lrelu(v, 0.1f)) : zero;
-            continue;
-          }
-          const float hn = round_bf16(to_f(h[e]) + v);
-          h[e] = from_f<pt_bf16>(hn);
-          if (last) {
-            const size_t ex = (size_t)(i - xs_off) * ldc + col + q;
-            xs[ex] = from_f<pt_bf16>(to_f(xs[ex]) + (ok ? hn : 0.f));
-          } else {
-            nxt[e] = ok ? from_f<pt_bf16>(lrelu(hn, 0.1f)) : zero;
-          }
-        }
-      });
-      PT_SYNC();
-      cur ^= 1;
-    }
-  }
+  });
 
   const float n_res = (float)plan.n_res;
   const int nf = s.tile / u_out;  // frames per tile (tile % u_out == 0)

@@ -1,6 +1,7 @@
 // Shared device code of the two HiFiGAN vocoder kernels (mrf_fused.cu,
-// fused_upsample_mrf.cu): the MRF residual conv chain run on a tile held
-// in shared memory.
+// fused_upsample_mrf.cu): the stage plan, bf16 conversions, and the
+// float32 bodies' MRF residual conv chain on the CUDA cores, run on a
+// tile held in shared memory (the bf16 bodies' chain is in tc_common.cuh).
 //
 // Every phase of a block is written as
 //     PT_THREADS(tid) { ...work of thread tid... }  PT_SYNC();
@@ -110,7 +111,7 @@ PT_DEVICE pt_bf16 from_f<pt_bf16>(float v) {
 #endif
 }
 
-// Four consecutive weights (output channels co..co+3) as floats. The
+// Four consecutive float32 weights (output channels co..co+3). The
 // wrapper checks C_out % 4 == 0, so the vector loads are aligned.
 PT_DEVICE void load4(const float* p, float w[4]) {
 #ifdef PT_HOST_EMULATION
@@ -118,17 +119,6 @@ PT_DEVICE void load4(const float* p, float w[4]) {
 #else
   float4 v = __ldg(reinterpret_cast<const float4*>(p));
   w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
-#endif
-}
-PT_DEVICE void load4(const pt_bf16* p, float w[4]) {
-#ifdef PT_HOST_EMULATION
-  for (int a = 0; a < 4; ++a) w[a] = pt_bf16_to_float(p[a]);
-#else
-  uint2 raw = __ldg(reinterpret_cast<const uint2*>(p));
-  __nv_bfloat162 lo = *reinterpret_cast<__nv_bfloat162*>(&raw.x);
-  __nv_bfloat162 hi = *reinterpret_cast<__nv_bfloat162*>(&raw.y);
-  float2 a = __bfloat1622float2(lo), b = __bfloat1622float2(hi);
-  w[0] = a.x; w[1] = a.y; w[2] = b.x; w[3] = b.y;
 #endif
 }
 

@@ -1,7 +1,8 @@
-// Warp-level tensor-core building blocks for the bf16 vocoder kernel
-// (fused_upsample_mrf.cu): ldmatrix, mma.sync m16n8k16 (bf16 in, f32
-// accumulators), cp.async, and one implicit-GEMM conv over a window held
-// position-major in shared memory.
+// Tensor-core building blocks of the two bf16 vocoder kernels
+// (mrf_fused.cu, fused_upsample_mrf.cu): ldmatrix, mma.sync m16n8k16
+// (bf16 in, f32 accumulators), cp.async, one implicit-GEMM conv over a
+// window held position-major in shared memory, and the MRF chain that
+// both kernels run on such a window.
 //
 // A warp phase is written as
 //     PT_WARPS(wp) { ...warp-uniform code...  PT_LANES(wp, tid) { ...lane... } }
@@ -195,12 +196,15 @@ PT_DEVICE void fetch_slice(int tid, pt_bf16* dst, int ldw, const pt_bf16* src, i
 // for output rows r in [row0, row0 + n_rows) and columns n < n_real. A is
 // position-major bf16 in shared memory (row stride lda, zero columns past
 // the real K); W_tap is a (k_real, n_real) slice of device memory at
-// w + tap*w_tap, staged per tap into one of two shared buffers with
-// cp.async while the previous tap's products run. Warp wp owns the
+// w + tap*w_tap. Each step stages step_rows rows (a multiple of 16) of one
+// tap's slice into one of two shared buffers (wbuf, rows of ldw,
+// wbuf_stride apart) with cp.async while the previous step's products
+// run; a step_rows of at least K stages whole taps. Warp wp owns the
 // (16-row, 16-column) tiles wp, wp + kWarps, ... (at most kMI) and keeps
-// their f32 sums in registers; sums run over taps, then 16-channel chunks,
-// so each output element's order does not depend on the tile. A tile may
-// read up to 15 rows past row0 + n_rows; those rows are discarded.
+// their f32 sums in registers; sums run over taps, then 16-channel
+// chunks, so each output element's order depends neither on the tile nor
+// on step_rows. A tile may read up to 15 rows past row0 + n_rows; those
+// rows are discarded.
 // epi(r, n, v0, v1) receives columns n, n+1 of row r.
 struct Gemm {
   const pt_bf16* a;
@@ -211,8 +215,16 @@ struct Gemm {
 };
 
 template <typename Epi>
-PT_DEVICE void gemm(const Gemm& g, pt_bf16* wbuf, int ldw, size_t wbuf_stride, Epi epi) {
+PT_DEVICE void gemm(const Gemm& g, pt_bf16* wbuf, int ldw, int step_rows, size_t wbuf_stride, Epi epi) {
+  const int step_chunks = step_rows / 16;
   const int n_items = (g.n_rows + 15) / 16 * g.n_pairs;
+  const int n_pieces = (g.k_chunks + step_chunks - 1) / step_chunks;  // steps per tap
+  const int n_steps = g.n_taps * n_pieces;
+  auto fetch = [&](int tid, int st) {
+    const int kk = st / n_pieces, k0 = (st - kk * n_pieces) * step_rows;
+    fetch_slice(tid, wbuf + (st & 1) * wbuf_stride, ldw, g.w + kk * g.w_tap + (size_t)k0 * g.n_real,
+                min(step_rows, g.k_real - k0), g.n_real);
+  };
   Regs<F4> acc[kMI][2];
   PT_WARPS(wp) {
 #pragma unroll
@@ -220,19 +232,21 @@ PT_DEVICE void gemm(const Gemm& g, pt_bf16* wbuf, int ldw, size_t wbuf_stride, E
       for (int j = 0; j < 2; ++j) PT_LANES(wp, tid) for (int e = 0; e < 4; ++e) acc[m][j][tid].x[e] = 0.f;
   }
   PT_THREADS(tid) {
-    fetch_slice(tid, wbuf, ldw, g.w, g.k_real, g.n_real);
+    fetch(tid, 0);
     cp_async_commit();
   }
-  for (int kk = 0; kk < g.n_taps; ++kk) {
+  for (int st = 0; st < n_steps; ++st) {
     PT_THREADS(tid) { cp_async_wait_all(); }
-    PT_SYNC();  // tap kk has landed; every warp is done with tap kk - 1
-    if (kk + 1 < g.n_taps) {
+    PT_SYNC();  // step st has landed; every warp is done with step st - 1
+    if (st + 1 < n_steps) {
       PT_THREADS(tid) {
-        fetch_slice(tid, wbuf + ((kk + 1) & 1) * wbuf_stride, ldw, g.w + (kk + 1) * g.w_tap, g.k_real, g.n_real);
+        fetch(tid, st + 1);
         cp_async_commit();
       }
     }
-    const pt_bf16* wb = wbuf + (kk & 1) * wbuf_stride;
+    const pt_bf16* wb = wbuf + (st & 1) * wbuf_stride;
+    const int kk = st / n_pieces, kc0 = (st - kk * n_pieces) * step_chunks;
+    const int kc1 = min(g.k_chunks, kc0 + step_chunks);
     PT_WARPS(wp) {
 #pragma unroll
       for (int m = 0; m < kMI; ++m) {
@@ -240,13 +254,13 @@ PT_DEVICE void gemm(const Gemm& g, pt_bf16* wbuf, int ldw, size_t wbuf_stride, E
         if (e >= n_items) break;
         const int mt = e / g.n_pairs, np = e - mt * g.n_pairs;
         const int ra = g.row0 + mt * 16 + kk * g.a_step + g.a_shift;
-        for (int kc = 0; kc < g.k_chunks; ++kc) {
+        for (int kc = kc0; kc < kc1; ++kc) {
           Regs<const pt_bf16*> pa, pb;
           Regs<U4> fa, fb;
           PT_LANES(wp, tid) {
             const int l = tid & 31, r = (l & 7) + ((l >> 3) & 1) * 8, c = (l >> 4) * 8;
             pa[tid] = g.a + (size_t)(ra + r) * g.lda + kc * 16 + c;
-            pb[tid] = wb + (size_t)(kc * 16 + r) * ldw + np * 16 + c;
+            pb[tid] = wb + (size_t)((kc - kc0) * 16 + r) * ldw + np * 16 + c;
           }
           ldsm_x4(fa, pa, wp);
           ldsm_x4_trans(fb, pb, wp);
@@ -274,6 +288,82 @@ PT_DEVICE void gemm(const Gemm& g, pt_bf16* wbuf, int ldw, size_t wbuf_stride, E
           }
         }
       }
+    }
+  }
+}
+
+PT_DEVICE float lrelu(float v, float slope) { return v >= 0.f ? v : v * slope; }
+PT_DEVICE float round_bf16(float v) { return to_f(from_f<pt_bf16>(v)); }
+
+// The bf16 MRF chain's shared-memory buffers over a window of w
+// position-major rows of stride ldc (round16(c) + 8 bf16: ldmatrix rows
+// hit distinct banks): the conv inputs a[0], a[1] (w + 16 rows each, for
+// a GEMM tile's reads past its range), the residual stream h (w rows),
+// the resblock sum xs (xs_w rows, window rows xs_off...) and the two
+// weight-step buffers wb (wb_rows rows each, wb_stride apart). Window
+// rows in [v_lo, v_hi) are inside the row's valid length.
+struct ChainTc {
+  pt_bf16 *a[2], *h, *xs, *wb;
+  size_t wb_stride;
+  int wb_rows, c, cp, ldc, w, xs_off, xs_w, v_lo, v_hi;
+};
+
+// Run the MRF chain of one stage on the tensor cores; xs must be zero on
+// entry and receives the sum over resblocks of the masked resblock
+// outputs over its rows. At the start of each resblock, load_in(tid)
+// writes the thread's share of the stage input over the window: h = the
+// input (zero outside [v_lo, v_hi)), a[0] = mask(lrelu_0.1(h)).
+// Conv j of a resblock computes the rows the rest of the resblock still
+// reads: [xs_off - E, xs_off + xs_w + E), E = the reach of the convs after
+// it; its input covers the previous conv's rows. Its epilogue adds the
+// bias and rounds, then (resblock "1", first conv of a pair) writes the
+// next conv's input, or adds the residual, rounds, and writes the next
+// conv's input or, after the last conv, adds to xs; the rounding points
+// are those of the plain version (ops/cuda/vocoder.py::mrf_fused_plain).
+template <typename LoadIn>
+PT_DEVICE void mrf_chain_tc(const MrfPlan& plan, const ChainTc& m, const pt_bf16* __restrict__ wm,
+                            const float* __restrict__ bm, LoadIn load_in) {
+  const int c = m.c, ldc = m.ldc;
+  const pt_bf16 zero = from_f<pt_bf16>(0.f);
+  int conv = 0;
+  for (int r = 0; r < plan.n_res; ++r) {
+    PT_THREADS(tid) { load_in(tid); }
+    PT_SYNC();
+    int reach = 0;
+    for (int j = 0; j < plan.n_steps[r]; ++j) reach += (plan.k[conv + j] * plan.d[conv + j] - plan.d[conv + j]) / 2;
+    int cur = 0;
+    for (int j = 0; j < plan.n_steps[r]; ++j, ++conv) {
+      const int k = plan.k[conv], d = plan.d[conv], pad = (k * d - d) / 2;
+      reach -= pad;
+      const bool inner = plan.rb1 && (j % 2 == 0);  // resblock "1": conv before the residual add
+      const bool last = j == plan.n_steps[r] - 1;
+      const float* bias = bm + (size_t)conv * c;
+      pt_bf16* nxt = m.a[cur ^ 1];
+      pt_bf16* h = m.h;
+      pt_bf16* xs = m.xs;
+      Gemm g{m.a[cur], ldc, m.xs_off - reach, m.xs_w + 2 * reach, d, -pad, m.cp / 16, m.cp / 16,
+             wm + (size_t)conv * plan.k_max * c * c, (size_t)c * c, c, c, k};
+      gemm(g, m.wb, ldc, m.wb_rows, m.wb_stride, [&](int i, int col, float v0, float v1) {
+        const bool ok = i >= m.v_lo && i < m.v_hi;
+        for (int q = 0; q < 2; ++q) {
+          const size_t e = (size_t)i * ldc + col + q;
+          const float v = round_bf16((q ? v1 : v0) + PT_LDG(bias + col + q));
+          if (inner) {
+            nxt[e] = ok ? from_f<pt_bf16>(lrelu(v, 0.1f)) : zero;
+            continue;
+          }
+          const float hn = round_bf16(to_f(h[e]) + v);
+          h[e] = from_f<pt_bf16>(hn);
+          if (last) {
+            const size_t ex = (size_t)(i - m.xs_off) * ldc + col + q;
+            xs[ex] = from_f<pt_bf16>(to_f(xs[ex]) + (ok ? hn : 0.f));
+          } else {
+            nxt[e] = ok ? from_f<pt_bf16>(lrelu(hn, 0.1f)) : zero;
+          }
+        }
+      });
+      PT_SYNC();
+      cur ^= 1;
     }
   }
 }

@@ -10,6 +10,12 @@ through a plain C interface.
   fused_upsample_mrf   lrelu -> polyphase ConvTranspose1d -> MRF
                        [-> conv_post -> tanh], phase-plane layouts
 
+Each kernel has two bodies: float32 (parity) on the CUDA cores, and
+bfloat16 (serving) on the tensor cores (mma.sync, csrc/tc_common.cuh).
+The bf16 bodies' tiles come from their shared-memory layouts, mirrored
+here: mrf_smem_bytes_tc / mrf_tc_fits (mrf_fused.cu::mrf_tc_layout) and
+fused_smem_bytes_tc / fused_tc_fits (fused_upsample_mrf.cu::tc_layout).
+
 Each wrapper takes its plain PyTorch version (`*_plain`, same signature
 and output layout) only when the input lies on the CPU. For a CUDA
 tensor it launches the kernel or raises; a failed build raises too.
@@ -51,6 +57,7 @@ NVCC_FLAGS = (
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use (H100)
 THREADS = 256  # threads per block (csrc/mrf_common.cuh: kThreads)
 TC_TILES = 8 * 12  # (16-row, 16-column) GEMM tiles a block holds (kWarps * kMI)
+MRF_TC_STEP_ROWS = 64  # weight rows mrf_fused's bf16 body stages per GEMM step (kStepRows)
 MAX_TILE = 4096
 
 
@@ -169,7 +176,7 @@ def fused_smem_bytes_tc(c_in, c_out, u, nq, tile, halo, hpost) -> int:
     fused_upsample_mrf.cu takes (csrc/fused_upsample_mrf.cu::tc_layout):
     position-major rows of round16(C) + 8 bf16 for the two conv inputs
     (+16 rows each), the residual stream, the transposed conv's output and
-    the resblock sum; the input window; two weight-slice buffers."""
+    the resblock sum; the input window; two whole-tap weight buffers."""
     ldc, ldi = _r16(c_out) + 8, _r16(c_in) + 8
     w = tile + 2 * halo
     n_fr = (w + u - 2) // u + 1
@@ -188,6 +195,28 @@ def fused_tc_fits(c_in, c_out, u, nq, tile, halo, hpost) -> bool:
     return (
         -(-w // 16) * (_r16(c_out) // 16) <= TC_TILES
         and fused_smem_bytes_tc(c_in, c_out, u, nq, tile, halo, hpost) <= SMEM_LIMIT
+    )
+
+
+def mrf_smem_bytes_tc(c, tile, halo) -> int:
+    """Bytes of shared memory the bf16 tensor-core body of mrf_fused.cu
+    takes (csrc/mrf_fused.cu::mrf_tc_layout): position-major rows of
+    round16(C) + 8 bf16 for the two conv inputs (+16 rows each), the
+    residual stream and the resblock sum; two weight buffers of up to 64
+    input channels of one tap."""
+    ldc = _r16(c) + 8
+    w = tile + 2 * halo
+    return 2 * ldc * (2 * (w + 16) + w + tile + 2 * min(MRF_TC_STEP_ROWS, _r16(c)))
+
+
+def mrf_tc_fits(c, tile, halo) -> bool:
+    """Whether the bf16 body of mrf_fused runs this tile: its layout fits
+    shared memory and each GEMM's (16-row, 16-column) tiles fit the
+    block's warps."""
+    w = tile + 2 * halo
+    return (
+        -(-w // 16) * (_r16(c) // 16) <= TC_TILES
+        and mrf_smem_bytes_tc(c, tile, halo) <= SMEM_LIMIT
     )
 
 
@@ -242,15 +271,27 @@ def mrf_launch_config(
     b, c, t, kernel_sizes, dilation_sizes, resblock_type, k_max, esize, n_sm
 ) -> Dict[str, Any]:
     """Tile, halo, margin, plan and shared-memory bytes of one mrf_fused
-    launch (the arguments of csrc/mrf_fused.cu::pt_mrf_fused)."""
+    launch (the arguments of csrc/mrf_fused.cu::pt_mrf_fused). esize 2
+    (bfloat16) sizes the tensor-core body's layout, esize 4 the float32
+    CUDA-core body's."""
     _, halo = stage_plan(kernel_sizes, dilation_sizes, resblock_type)
     margin = _margin(kernel_sizes, dilation_sizes)
     rb1 = resblock_type == "1"
 
-    def smem(tl):
-        return mrf_smem_bytes(c, tl, halo, margin, rb1, esize)
+    if esize == 2:
+        def smem(tl):
+            return mrf_smem_bytes_tc(c, tl, halo)
 
-    tile = _pick_tile(lambda tl: smem(tl) <= SMEM_LIMIT, 16, t, b, n_sm)
+        def fits(tl):
+            return mrf_tc_fits(c, tl, halo)
+    else:
+        def smem(tl):
+            return mrf_smem_bytes(c, tl, halo, margin, rb1, esize)
+
+        def fits(tl):
+            return smem(tl) <= SMEM_LIMIT
+
+    tile = _pick_tile(fits, 16, t, b, n_sm)
     if tile == 0:
         raise ValueError(f"mrf_fused: C={c} with halo {halo} does not fit shared memory")
     return dict(
@@ -429,6 +470,8 @@ def mrf_fused(
     _check(packed_b, "packed_b", torch.float32, (n_convs, c, 1), dev)
     if c % 4 or c > 4 * THREADS:
         raise ValueError(f"mrf_fused needs C % 4 == 0 and C <= {4 * THREADS}, got {c}")
+    if dt == torch.bfloat16 and packed_w.data_ptr() % 16:
+        raise ValueError("mrf_fused (bf16) needs packed_w on a 16-byte boundary")
     cfg = mrf_launch_config(
         b, c, t, kernel_sizes, dilation_sizes, resblock_type, k_max,
         x_tm.element_size(), _n_sm(dev),

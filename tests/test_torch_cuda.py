@@ -71,6 +71,24 @@ def test_mrf_fused_kernel(dev, rb, c, t, dtype):
     _close(got, V.mrf_fused_plain(*args, **kw), dtype)
 
 
+def test_mrf_fused_row_alone_equals_row_in_batch(dev):
+    """bf16 (the tensor-core body): a row computed alone (another grid,
+    another tile) gives the same bits as inside a batch of 3, at the
+    medium voice's stage-0 width."""
+    g = torch.Generator().manual_seed(13)
+    ks, ds = RB["2"]
+    t = 1511
+    w, b = V.pack_stage_weights(_blocks(g, 128, "2"), ks, ds, "2", dtype=torch.bfloat16)
+    lengths = torch.tensor([t, 1203, 40], dtype=torch.int32)
+    x = torch.randn((3, 128, t), generator=g) * (torch.arange(t)[None, None] < lengths[:, None, None])
+    x, lengths, w, b = x.to(dev, torch.bfloat16), lengths.to(dev), w.to(dev), b.to(dev)
+    kw = dict(kernel_sizes=ks, dilation_sizes=ds, resblock_type="2")
+    batch = V.mrf_fused(x, lengths, w, b, **kw)
+    alone = V.mrf_fused(x[1:2, :, :1203].contiguous(), lengths[1:2].contiguous(), w, b, **kw)
+    assert torch.equal(alone[0], batch[1, :, :1203])
+    assert not batch[1, :, 1203:].any() and not batch[2, :, 40:].any()
+
+
 def _stage(g, u, k, c_in, c_out, rb, dtype, dev):
     q0, used, idx = _tm_phase_plan(k, u)
     kern = torch.randn((k, c_in, c_out), generator=g) * 0.1
@@ -192,5 +210,11 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         V.mrf_fused(x, lengths.cpu(), w, b, **kw)
     with pytest.raises(ValueError, match="stage plan"):
         V.mrf_fused(x, lengths, w[:4], b[:4], **kw)
+    # bf16 weights off a 16-byte boundary (cp.async copies 16 or 8 bytes)
+    wb = torch.zeros(w.numel() + 1, dtype=torch.bfloat16, device=dev)[1:].view(w.shape)
+    with pytest.raises(ValueError, match="16-byte"):
+        V.mrf_fused(x.bfloat16(), lengths, wb, b, **kw)
     x = torch.randn((2, 32, 50), generator=g).to(dev)
     assert torch.equal(V.mrf_fused(x, lengths, w, b, **kw), V.mrf_fused(x, lengths, w, b, **kw))
+    xb = x.bfloat16()
+    assert torch.equal(V.mrf_fused(xb, lengths, w.bfloat16(), b, **kw), V.mrf_fused(xb, lengths, w.bfloat16(), b, **kw))

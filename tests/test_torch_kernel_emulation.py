@@ -2,14 +2,17 @@
 
 csrc/host_emulation.cpp compiles mrf_fused.cu and fused_upsample_mrf.cu
 with -DPT_HOST_EMULATION: each block runs phase by phase on the CPU
-(csrc/mrf_common.cuh), so the kernels' tiling, halos, masks, polyphase
-and plane index maps are checked here, where there is no GPU. Launch
-parameters come from the same functions the CUDA wrappers use
-(ops/cuda/vocoder.py::mrf_launch_config / fused_launch_config); `n_sm`
-is varied to force several tile sizes per case.
+(csrc/mrf_common.cuh), and the bf16 bodies' tensor-core warp
+instructions from their PTX fragment layouts (csrc/tc_common.cuh), so
+the kernels' tiling, halos, masks, polyphase and plane index maps are
+checked here, where there is no GPU. Launch parameters come from the
+same functions the CUDA wrappers use (ops/cuda/vocoder.py::
+mrf_launch_config / fused_launch_config); `n_sm` is varied to force
+several tile sizes per case.
 """
 
 import ctypes
+import hashlib
 import shutil
 import subprocess
 
@@ -53,13 +56,18 @@ def emu(tmp_path_factory):
     return lib
 
 
-def _blocks(rng, c, rb):
+def _blocks(rng, c, rb, unit_gain=False):
+    """Random resblock weights: a fixed scale of 0.15, or with unit_gain a
+    scale of 1/sqrt(k*C), which keeps activations O(1) through the chain
+    at any width, as trained weights do."""
     ks, ds = RB[rb]
     blocks = []
     for k, dils in zip(ks, ds):
+        scale = (k * c) ** -0.5 if unit_gain else 0.15
+
         def conv():
             return {
-                "w": torch.from_numpy(rng.standard_normal((k, c, c)).astype(np.float32) * 0.15),
+                "w": torch.from_numpy(rng.standard_normal((k, c, c)).astype(np.float32) * scale),
                 "b": torch.from_numpy(rng.standard_normal(c).astype(np.float32) * 0.1),
             }
         if rb == "1":
@@ -69,17 +77,21 @@ def _blocks(rng, c, rb):
     return blocks
 
 
-def _emu_mrf(lib, x, lengths, w, b, rb, n_sm):
+def _emu_mrf(lib, x, lengths, w, b, rb, n_sm, tile=None):
+    """Run the emulated mrf_fused with the wrapper's launch config, or with
+    a bf16 tile of the caller's choice."""
     ks, ds = RB[rb]
     bsz, c, t = x.shape
     cfg = V.mrf_launch_config(bsz, c, t, ks, ds, rb, w.shape[1], x.element_size(), n_sm)
+    if tile is not None:
+        cfg.update(tile=tile, smem=V.mrf_smem_bytes_tc(c, tile, cfg["halo"]))
     out = torch.full_like(x, float("nan"))
     rc = lib.emu_mrf_fused(
         x.data_ptr(), lengths.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
         bsz, c, t, cfg["tile"], cfg["halo"], cfg["margin"], DTYPES[x.dtype],
         V._int_array(cfg["plan"]), len(cfg["plan"]), cfg["smem"],
     )
-    assert rc == 0
+    assert rc == 0, rc
     return out, cfg["tile"]
 
 
@@ -99,6 +111,61 @@ def test_mrf_fused_source_matches_plain(emu, rb, c, dtype):
         tiles.add(tile)
         np.testing.assert_allclose(got.float().numpy(), ref.float().numpy(), atol=TOL[dtype][0], rtol=TOL[dtype][1])
     assert len(tiles) > 1, tiles
+
+
+def _medium_stage0(dtype, seed):
+    """Stage 0 of the medium voice at a narrow length: C=128, resblock "2"
+    (halo 45), three ragged rows, the last shorter than one tile."""
+    rng = np.random.default_rng(seed)
+    ks, ds = RB["2"]
+    t = 200
+    lengths = torch.tensor([200, 173, 5], dtype=torch.int32)
+    x = torch.from_numpy(rng.standard_normal((3, 128, t)).astype(np.float32)).to(dtype)
+    w, b = V.pack_stage_weights(_blocks(rng, 128, "2", unit_gain=True), ks, ds, "2", dtype=dtype)
+    return x, lengths, w, b
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mrf_fused_medium_width_source_matches_plain(emu, dtype):
+    """The medium voice's stage-0 width (C=128, the bf16 body's largest
+    tile, 96 positions: 12 x 8 GEMM tiles)."""
+    x, lengths, w, b = _medium_stage0(dtype, seed=5)
+    ks, ds = RB["2"]
+    ref = V.mrf_fused_plain(x, lengths, w, b, kernel_sizes=ks, dilation_sizes=ds, resblock_type="2")
+    got, tile = _emu_mrf(emu, x, lengths, w, b, "2", n_sm=1)
+    if dtype == torch.bfloat16:
+        assert tile == 96
+    np.testing.assert_allclose(got.float().numpy(), ref.float().numpy(), atol=TOL[dtype][0], rtol=TOL[dtype][1])
+
+
+def test_mrf_fused_bf16_output_does_not_depend_on_the_tile(emu):
+    """The bf16 body sums each output element in one fixed order (taps,
+    then 16-channel chunks), so tiles of other sizes give the same bits;
+    a tile past a row's end writes zeros."""
+    x, lengths, w, b = _medium_stage0(torch.bfloat16, seed=6)
+    outs = [_emu_mrf(emu, x, lengths, w, b, "2", n_sm=1, tile=tile)[0] for tile in (32, 64, 96)]
+    for got in outs[1:]:
+        assert torch.equal(got, outs[0])
+    assert not torch.isnan(outs[0]).any()
+    assert torch.equal(outs[0][2, :, 5:], torch.zeros_like(outs[0][2, :, 5:]))
+
+
+def test_mrf_fused_bf16_refuses_a_layout_that_does_not_fit(emu):
+    """-3, as the CUDA entry returns, for a tile whose GEMMs need more
+    (16-row, 16-column) tiles than the block's warps hold, or whose layout
+    needs more shared memory than the launch gives."""
+    x, lengths, w, b = _medium_stage0(torch.bfloat16, seed=7)
+    ks, ds = RB["2"]
+    cfg = V.mrf_launch_config(3, 128, 200, ks, ds, "2", w.shape[1], 2, 1)
+    assert not V.mrf_tc_fits(128, 112, 45) and V.mrf_tc_fits(128, 96, 45)
+    out = torch.empty_like(x)
+    for tile, smem in ((112, V.mrf_smem_bytes_tc(128, 112, 45)), (96, V.mrf_smem_bytes_tc(128, 96, 45) - 16)):
+        rc = emu.emu_mrf_fused(
+            x.data_ptr(), lengths.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
+            3, 128, 200, tile, cfg["halo"], cfg["margin"], 1,
+            V._int_array(cfg["plan"]), len(cfg["plan"]), smem,
+        )
+        assert rc == -3, (tile, smem, rc)
 
 
 def _stage_weights(rng, u, k, c_in, c_out, rb, dtype):
@@ -148,19 +215,23 @@ def _plain_stage(x, lengths, s, *, u, u_in, rb, post):
     )
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize(
-    "u,k,c_in,c_out,rb,post",
-    [(8, 16, 48, 32, "2", False), (4, 8, 32, 16, "2", True), (2, 4, 16, 8, "1", True),
-     (4, 8, 20, 12, "2", True)],
-)
-def test_fused_stage_source_matches_plain(emu, u, k, c_in, c_out, rb, post, dtype):
+STAGE_CASES = [(8, 16, 48, 32, "2", False), (4, 8, 32, 16, "2", True), (2, 4, 16, 8, "1", True),
+               (4, 8, 20, 12, "2", True)]
+
+
+def _stage_case(u, k, c_in, c_out, rb, dtype):
     rng = np.random.default_rng(1)
     v = max(40, 256 // u)  # enough samples for more than one tile size
     lengths = torch.tensor([v * u, (v - 7) * u, 5 * u - 3], dtype=torch.int32)
     x = torch.from_numpy(rng.standard_normal((3, c_in, v)).astype(np.float32))
     x = (x * (torch.arange(v)[None, None] < (lengths // u)[:, None, None])).to(dtype)
-    s = _stage_weights(rng, u, k, c_in, c_out, rb, dtype)
+    return x, lengths, _stage_weights(rng, u, k, c_in, c_out, rb, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("u,k,c_in,c_out,rb,post", STAGE_CASES)
+def test_fused_stage_source_matches_plain(emu, u, k, c_in, c_out, rb, post, dtype):
+    x, lengths, s = _stage_case(u, k, c_in, c_out, rb, dtype)
     ref = _plain_stage(x, lengths, s, u=u, u_in=1, rb=rb, post=post)
     tiles = set()
     for n_sm in (1, 32):
@@ -168,6 +239,22 @@ def test_fused_stage_source_matches_plain(emu, u, k, c_in, c_out, rb, post, dtyp
         tiles.add(tile)
         np.testing.assert_allclose(got.float().numpy(), ref.float().numpy(), atol=TOL[dtype][0], rtol=TOL[dtype][1])
     assert len(tiles) > 1, tiles
+
+
+# sha1 (first 16 hex digits) of the bf16 output bits of each STAGE_CASES
+# case (n_sm=32), recorded from the kernel as it was before its MRF chain
+# became the one it shares with mrf_fused (tc_common.cuh::mrf_chain_tc).
+# The chain moved without a change to its arithmetic; a change that
+# alters the sums' order or rounding points changes these on purpose.
+STAGE_BF16_SHA1 = ["17b369ed192b93bb", "5a725e4c3ec62dad", "aa66cd54f84048ca", "a38beaf0873f5077"]
+
+
+@pytest.mark.parametrize("case,sha", zip(STAGE_CASES, STAGE_BF16_SHA1))
+def test_fused_stage_bf16_output_bits_are_pinned(emu, case, sha):
+    u, k, c_in, c_out, rb, post = case
+    x, lengths, s = _stage_case(u, k, c_in, c_out, rb, torch.bfloat16)
+    got, _ = _emu_stage(emu, x, lengths, s, u=u, u_in=1, rb=rb, post=post, n_sm=32)
+    assert hashlib.sha1(got.view(torch.int16).numpy().tobytes()).hexdigest()[:16] == sha
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
