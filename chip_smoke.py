@@ -19,7 +19,18 @@ Phases (any failure makes the exit code non-zero):
      the kernels' launch counts, the time-major generator against the
      plain generator, the card against the CPU on a small input, and the
      speed of a warm batch;
-  4. one JSON line of per-kernel numbers, then the device line.
+  4. the serving path: the HTTP server in this process with the
+     coalescing batcher on, after a full warm-up; /health and /metrics;
+     two bursts of 16 concurrent GETs of / (each equal to the same
+     request served alone, fewer batches than requests, one mrf_fused
+     and two fused_upsample_mrf launches per decode); a measurement
+     window of 320 GETs from 16 closed-loop clients (p50/p99 latency,
+     requests/s, every response checked); POST /batch; a chunked /stream
+     (framing, sample count, one mrf_fused and two fused_upsample_mrf
+     launches per chunk) cold and 24 times warm (time to first chunk
+     p50/p99); the seams of streaming in parity precision against one
+     whole decode; both bf16 kernels at the streaming chunk's shape;
+  5. one JSON line of per-kernel numbers, then the device line.
 
 Needs one CUDA card; prints no result and exits non-zero without one.
 """
@@ -176,9 +187,11 @@ def sass_tensor_cores(V) -> None:
               f"bf16 {lib} ({kernel}) runs mma.sync: HMMA in its SASS")
 
 
-def phase_kernels(cfg, params_np, peaks):
+def phase_kernels(cfg, params_np, peaks, frames=(403, 396, 5), dtypes=None):
     """Each kernel against its plain version at the medium voice's
-    shapes; returns the per-kernel numbers of the main path's dtype."""
+    shapes, rows of these frame counts; returns the per-kernel numbers
+    by (kernel, dtype). The default rows are ragged (F not a multiple of
+    any tile)."""
     import torch
 
     from piper_tpu_torch.models.vits import generator as G
@@ -190,9 +203,9 @@ def phase_kernels(cfg, params_np, peaks):
     ks = tuple(cfg.resblock_kernel_sizes)
     ds = tuple(tuple(d) for d in cfg.resblock_dilation_sizes)
     rb = cfg.resblock
-    frames = [403, 396, 5]  # F not a multiple of any tile; ragged rows
+    frames = list(frames)
     results = {}
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in dtypes or (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
         atol, rtol = TOL[dname]
         dec = params_from_jax(params_np, cfg, "cuda", dtype)["dec"]
@@ -209,7 +222,7 @@ def phase_kernels(cfg, params_np, peaks):
             torch.cuda.synchronize()
             err0 = (got.float() - ref.float()).abs().max().item()
             ok0 = bool(torch.allclose(got.float(), ref.float(), atol=atol, rtol=rtol))
-            check(ok0, f"mrf_fused stage 0 {dname}: max_abs_err {err0:.3e} (atol {atol}, rtol {rtol})")
+            check(ok0, f"mrf_fused stage 0 {dname} (frames {frames}): max_abs_err {err0:.3e} (atol {atol}, rtol {rtol})")
             ms0 = time_ms(lambda: V.mrf_fused(x0, lens0, pw, pb, **kw))
             plain0 = time_ms(lambda: V.mrf_fused_plain(x0, lens0, pw, pb, **kw), reps=3)
             lib0 = time_ms(lambda: lib_mrf(dec["resblocks"][0], x0, lens0, cfg))
@@ -238,13 +251,13 @@ def phase_kernels(cfg, params_np, peaks):
             torch.cuda.synchronize()
             err1 = (y_k.float() - y_p.float()).abs().max().item()
             ok1 = bool(torch.allclose(y_k.float(), y_p.float(), atol=atol, rtol=rtol))
-            check(ok1, f"fused_upsample_mrf stage 1 {dname}: max_abs_err {err1:.3e}")
+            check(ok1, f"fused_upsample_mrf stage 1 {dname} (frames {frames}): max_abs_err {err1:.3e}")
             w_k = stage2(V.fused_upsample_mrf, y_k)
             w_p = stage2(V.fused_upsample_mrf_plain, y_p)
             torch.cuda.synchronize()
             err2 = (w_k.float() - w_p.float()).abs().max().item()
             ok2 = bool(torch.allclose(w_k.float(), w_p.float(), atol=atol, rtol=rtol))
-            check(ok2, f"fused_upsample_mrf stages 1->2 {dname}: max_abs_err {err2:.3e}")
+            check(ok2, f"fused_upsample_mrf stages 1->2 {dname} (frames {frames}): max_abs_err {err2:.3e}")
             ms1 = time_ms(lambda: stage1(V.fused_upsample_mrf, x1))
             ms2 = time_ms(lambda: stage2(V.fused_upsample_mrf, y_k))
             plain12 = time_ms(lambda: stage2(V.fused_upsample_mrf_plain, stage1(V.fused_upsample_mrf_plain, x1)), reps=3)
@@ -273,10 +286,10 @@ def phase_kernels(cfg, params_np, peaks):
         for sname, ms, lib, flops, nbytes in (("stage 1", ms1, lib_s1, flops1, bytes1),
                                               ("stage 2", ms2, lib_s2, flops2, bytes2)):
             bound = max(flops / peak, nbytes / bw) * 1e3
-            print(f"fused_upsample_mrf {sname} {dname}: kernel {ms:.3f} ms, cuDNN composition of the stage "
+            print(f"fused_upsample_mrf {sname} {dname} (frames {frames}): kernel {ms:.3f} ms, cuDNN composition of the stage "
                   f"{lib:.3f} ms, bound {bound:.4f} ms, {flops / ms / 1e9:.2f} TFLOP/s achieved, "
                   f"{100 * bound / ms:.2f}% of the bound", flush=True)
-        print(f"fused_upsample_mrf {dname}: stages 1+2 kernel {ms1 + ms2:.3f} ms vs cuDNN composition "
+        print(f"fused_upsample_mrf {dname} (frames {frames}): stages 1+2 kernel {ms1 + ms2:.3f} ms vs cuDNN composition "
               f"{lib12:.3f} ms ({'faster' if ms1 + ms2 < lib12 else 'SLOWER'})", flush=True)
         for kname, ms, plain, lib, flops, nbytes, err, src, rep in (
             ("mrf_fused", ms0, plain0, lib0, flops0, bytes0, err0,
@@ -470,6 +483,294 @@ def profile_batch(voice, rows):
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<4d} {e.key[:90]}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 4: the serving path (HTTP server, batcher, streaming)
+# ---------------------------------------------------------------------------
+
+WINDOW_ROUNDS = 20  # GETs per client in the measurement window (16 clients)
+STREAMS = 24  # warm /stream requests timed one after another
+STREAM_TEXT = ("Streaming speech from the card arrives chunk by chunk while the rest of "
+               "the sentence is still being decoded on the device")
+
+
+def http_get(port, path, data=None, headers=None):
+    """(status, headers, body, seconds) of one request to the local server."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data, headers=headers or {})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            body = resp.read()
+            return resp.status, dict(resp.headers), body, time.perf_counter() - t0
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), e.read(), time.perf_counter() - t0
+
+
+def http_stream(port, path):
+    """GET a chunked /stream; returns (headers, chunk payloads, seconds to
+    the first chunk, seconds to the terminator), checking the HTTP/1.1
+    framing of every chunk."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    t0 = time.perf_counter()
+    conn.request("GET", path)
+    resp = conn.getresponse()
+    headers = dict(resp.getheaders())
+    if resp.status != 200 or headers.get("Transfer-Encoding") != "chunked":
+        conn.close()
+        raise RuntimeError(f"/stream answered {resp.status} {headers}")
+    chunks, first = [], None
+    while True:
+        size_line = resp.fp.readline()
+        if not size_line.endswith(b"\r\n"):
+            raise RuntimeError(f"bad chunk size line {size_line!r}")
+        size = int(size_line, 16)
+        payload = resp.fp.read(size)
+        if len(payload) != size or resp.fp.read(2) != b"\r\n":
+            raise RuntimeError("truncated chunk")
+        if size == 0:
+            break
+        if first is None:
+            first = time.perf_counter() - t0
+        chunks.append(payload)
+    total = time.perf_counter() - t0
+    conn.close()
+    return headers, chunks, first, total
+
+
+def wav_pcm(raw):
+    import numpy as np
+
+    with wave.open(io.BytesIO(raw), "rb") as w:
+        return w.getframerate(), np.frombuffer(w.readframes(w.getnframes()), np.int16)
+
+
+def profile_stream(port, path):
+    """Device time by kernel over one warm /stream (torch.profiler; the
+    server's threads launch, CUPTI sees every kernel of the process)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, chunks, first, total = http_stream(port, path)
+    events = [e for e in prof.key_averages() if getattr(e, "device_type", None) is not None
+              and str(e.device_type).endswith("CUDA")]
+    dev_total = sum(e.self_device_time_total for e in events) / 1e3
+    print(f"profile of one warm /stream ({len(chunks)} chunks): wall {total * 1e3:.2f} ms (first chunk "
+          f"{first * 1e3:.2f} ms), device busy {dev_total:.2f} ms ({100 * dev_total / (total * 1e3):.1f}% "
+          "of wall)")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
+        print(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<4d} {e.key[:90]}")
+
+
+def phase_serving(cfg, params_np, card, peaks):
+    """The HTTP server with the batcher on a fast voice on the card."""
+    import base64
+    import threading
+    import urllib.parse
+
+    import numpy as np
+    import torch
+
+    from piper_tpu_torch.models.vits import model as M
+    from piper_tpu_torch.ops.cuda import vocoder as V
+    from piper_tpu_torch.runtime.batching import group_by_bucket, pick_bucket
+    from piper_tpu_torch.runtime.streaming import StreamingDecoder
+    from piper_tpu_torch.runtime.voice import TorchVoice, utterance_seed
+    from piper_tpu_torch.server.batcher import CoalescingBatcher
+    from piper_tpu_torch.server.http_server import serve
+
+    voice = TorchVoice(params_np, cfg, _voice_cfg(cfg), precision="fast", device="cuda", seed=0)
+    t0 = time.perf_counter()
+    voice.warmup((1, 16), full=True)
+    print(f"serving: warmup((1, 16), full=True) {time.perf_counter() - t0:.3f} s")
+    # every phrase of the burst below in one batch, against each alone:
+    # the largest composition the batcher can form, fixed (the burst's
+    # own windows vary from run to run)
+    phrases, seeds = [], []
+    for i in range(16):
+        for sentence in voice.phonemize(TEXTS[i % len(TEXTS)]):
+            for ids, _ in voice._phrases(sentence, _syn(seed=i)):
+                phrases.append(ids)
+                seeds.append(i)
+    together = voice.collect(voice.submit(phrases, row_seeds=seeds))
+    same = sum(np.array_equal(t, voice.synthesize_ids_batch([p], syn=_syn(seed=s))[0])
+               for t, p, s in zip(together, phrases, seeds))
+    check(same == len(phrases), f"{same} of {len(phrases)} phrases in one batch of {len(phrases)} equal "
+                                "the phrase alone, bit for bit")
+    voice.batcher = CoalescingBatcher(voice, window_ms=4.0, max_batch=16)
+    server = serve(voice, host="127.0.0.1", port=0)
+    port = server.server_address[1]
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        for path in ("/health", "/metrics"):
+            status, _, body, _ = http_get(port, path)
+            check(status == 200 and isinstance(json.loads(body), dict), f"GET {path} answers: {body[:120]!r}")
+
+        # 16 concurrent GETs, each against the same request served alone
+        paths = [f"/?text={urllib.parse.quote(TEXTS[i % len(TEXTS)])}&seed={i}" for i in range(16)]
+        alone = [http_get(port, p) for p in paths]
+        solo = sorted(a[3] for a in alone)
+        print(f"serving: 16 GETs one at a time (smoke observation, 16 samples): latency p50 "
+              f"{np.percentile(solo, 50):.4f} s, max {solo[-1]:.4f} s  [{card}]", flush=True)
+        # (rows, decodes, seconds in submit) of each batch the batcher
+        # sends; a decode is one phoneme bucket's encode and vocode
+        submits = []
+        submit = voice.submit
+
+        def timed_submit(ids_list, **kw):
+            t0 = time.perf_counter()
+            handle = submit(ids_list, **kw)
+            decodes = len(group_by_bucket([len(ids) for ids in ids_list], voice.phoneme_buckets))
+            submits.append((len(ids_list), decodes, round(time.perf_counter() - t0, 4)))
+            return handle
+
+        def check_launches(what):
+            n_mrf, n_fused = V.mrf_fused.launches, V.fused_upsample_mrf.launches
+            decodes = sum(d for _, d, _ in submits)
+            check(decodes >= 1 and n_mrf == decodes and n_fused == 2 * decodes,
+                  f"{what} launched mrf_fused {n_mrf} and fused_upsample_mrf {n_fused} times for "
+                  f"{decodes} decodes in {len(submits)} batches (once and twice per decode)")
+
+        def reset_counts():
+            submits.clear()
+            V.mrf_fused.launches = 0
+            V.fused_upsample_mrf.launches = 0
+
+        voice.submit = timed_submit
+
+        def clients(n_clients, rounds):
+            """n_clients threads, each sending `rounds` GETs one after
+            another (client i's k-th is paths[(i + k) % 16]); returns
+            [(path index, (status, headers, body, s))] and the wall."""
+            got = [[] for _ in range(n_clients)]
+            barrier = threading.Barrier(n_clients)
+
+            def client(i):
+                barrier.wait()
+                for k in range(rounds):
+                    j = (i + k) % len(paths)
+                    got[i].append((j, http_get(port, paths[j])))
+
+            threads = [threading.Thread(target=client, args=(i,)) for i in range(n_clients)]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=300)
+            return [r for rs in got for r in rs], time.perf_counter() - t0
+
+        # two bursts of 16 concurrent GETs: correctness checks; their times
+        # are smoke observations (16 samples each)
+        for run in ("first", "second"):
+            before = dict(voice.batcher.stats)
+            reset_counts()
+            got, wall = clients(16, 1)
+            batches = voice.batcher.stats["batches"] - before["batches"]
+            n_ok = sum(g[0] == 200 for _, g in got)
+            check(len(got) == 16 and n_ok == 16,
+                  f"{run} burst of 16 concurrent GETs of /: 16 sent, {n_ok} succeeded, {16 - n_ok} failed")
+            if n_ok == 16:
+                wavs_ok = all(wav_pcm(g[2])[0] == 22050 and len(wav_pcm(g[2])[1]) > 0 for _, g in got)
+                check(wavs_ok, "every response is a 22,050 Hz WAV with samples")
+                same = sum(g[2] == alone[j][2] for j, g in got)
+                check(same == 16, f"{same} of 16 concurrent responses equal the same request served alone")
+                lat = sorted(g[3] for _, g in got)
+                print(f"serving: {run} burst (smoke observation, 16 samples), 16 concurrent GETs in "
+                      f"{wall:.4f} s, latency min {lat[0]:.4f} s, max {lat[-1]:.4f} s; {batches} batches, "
+                      f"(rows, decodes, s in submit) {submits}  [{card}]", flush=True)
+            check(0 < batches < 16, f"the batcher coalesced: {batches} batches for 16 requests")
+            check_launches(f"the {run} burst")
+
+        # the measurement window: 16 clients in a closed loop at the burst's
+        # mix, WINDOW_ROUNDS requests each
+        before = dict(voice.batcher.stats)
+        reset_counts()
+        got, wall = clients(16, WINDOW_ROUNDS)
+        batches = voice.batcher.stats["batches"] - before["batches"]
+        n = len(got)
+        n_ok = sum(g[0] == 200 for _, g in got)
+        same = sum(g[0] == 200 and g[2] == alone[j][2] for j, g in got)
+        check(n == 16 * WINDOW_ROUNDS and n_ok == n and same == n,
+              f"window: {n} GETs sent, {n_ok} succeeded, {same} equal the request served alone")
+        check_launches("the window")
+        lat = np.array([g[3] for _, g in got])
+        rows = [r for r, _, _ in submits]
+        print(f"serving: window of {n} GETs from 16 closed-loop clients in {wall} s: {n / wall} requests/s, "
+              f"latency p50 {np.percentile(lat, 50)} s, p99 {np.percentile(lat, 99)} s, max {lat.max()} s; "
+              f"{batches} batches, rows per batch mean {np.mean(rows) if rows else 0:.2f}, "
+              f"decodes per batch mean {np.mean([d for _, d, _ in submits]) if submits else 0:.2f}, "
+              f"s in submit p50 {np.percentile([t for _, _, t in submits], 50) if submits else 0}  [{card}]",
+              flush=True)
+        voice.submit = submit
+
+        status, _, body, _ = http_get(port, "/batch?seed=3", data=json.dumps({"texts": TEXTS}).encode(),
+                                      headers={"Content-Type": "application/json"})
+        wavs = json.loads(body)["wavs"] if status == 200 else []
+        check(len(wavs) == len(TEXTS) and all(wav_pcm(base64.b64decode(w))[0] == 22050 for w in wavs),
+              f"POST /batch: {len(wavs)} WAVs for {len(TEXTS)} texts")
+
+        # /stream: cold (first stream of the process), then STREAMS warm
+        q = f"/stream?text={urllib.parse.quote(STREAM_TEXT)}&seed=4"
+        _, cold_chunks, cold_first, cold_total = http_stream(port, q)
+        V.mrf_fused.launches = 0
+        V.fused_upsample_mrf.launches = 0
+        headers, chunks, first, total = http_stream(port, q)
+        n_mrf, n_fused = V.mrf_fused.launches, V.fused_upsample_mrf.launches
+        pcm = np.frombuffer(b"".join(chunks), "<i2")
+        ids = voice.phonemes_to_ids(voice.phonemize(STREAM_TEXT)[0])
+        batched = voice.synthesize_ids_batch([ids], syn=_syn(seed=4))[0]
+        audio_s = len(pcm) / cfg.audio.sample_rate
+        check(headers.get("X-Sample-Rate") == "22050" and len(chunks) >= 3 and chunks == cold_chunks,
+              f"/stream: {len(chunks)} chunks, framing parsed, same bytes cold and warm")
+        check(len(pcm) == len(batched), f"/stream: {len(pcm)} samples, batch path {len(batched)}")
+        check(n_mrf == len(chunks) and n_fused == 2 * len(chunks),
+              f"/stream launched mrf_fused {n_mrf} and fused_upsample_mrf {n_fused} times for "
+              f"{len(chunks)} chunks")
+        firsts, totals, same = [first], [total], 1
+        for _ in range(STREAMS - 1):
+            _, c, f, t = http_stream(port, q)
+            firsts.append(f)
+            totals.append(t)
+            same += c == chunks
+        check(same == STREAMS, f"{same} of {STREAMS} warm streams give the same bytes")
+        print(f"serving: /stream of {audio_s} audio-s in {len(chunks)} chunks, {STREAMS} warm streams one "
+              f"after another: time to first chunk p50 {np.percentile(firsts, 50)} s, p99 "
+              f"{np.percentile(firsts, 99)} s, max {max(firsts)} s; whole stream p50 "
+              f"{np.percentile(totals, 50)} s, {audio_s / np.percentile(totals, 50)} audio-s/s at the p50; "
+              f"cold (first stream of the process, one sample): first chunk {cold_first} s, whole "
+              f"{cold_total} s  [{card}]", flush=True)
+        profile_stream(port, q)
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+        voice.batcher.close()
+
+    # the seams: streaming in parity precision against one whole decode
+    parity = TorchVoice(params_np, cfg, _voice_cfg(cfg), precision="parity", device="cuda", seed=0)
+    key = utterance_seed(4, ids)
+    with torch.inference_mode(), parity._precision():
+        bucket = pick_bucket(len(ids), parity.phoneme_buckets)
+        enc, frames = parity._encode([ids], [key], bucket, _syn(seed=4), None)
+        z_p, y_mask = parity._latents(enc, [key], frames[0], _syn(seed=4))
+        whole = M.synthesizer_vocode(parity.params, z_p, y_mask, cfg=cfg)[0].float().cpu().numpy()
+    streamed = np.concatenate(list(StreamingDecoder(parity).stream(z_p, frames[0])))
+    err = np.abs(streamed - whole[: len(streamed)])
+    p99, mean = float(np.percentile(err, 99)), float(err.mean())
+    check(len(streamed) == len(whole) and p99 < 5e-3 and mean < 1e-3,
+          f"streamed vs whole decode, parity, {frames[0]} frames: p99 {p99:.3e} (< 5e-3), "
+          f"mean {mean:.3e} (< 1e-3), max {err.max():.3e}")
+
+    # both bf16 kernels at a streamed chunk's shapes: 45 + 2 x 10 frames,
+    # and the final chunk of 1 frame with 10 frames of left context
+    for frames_chunk in ((65,), (11,)):
+        phase_kernels(cfg, params_np, peaks, frames=frames_chunk, dtypes=(torch.bfloat16,))
+
+
 def main() -> int:
     import torch
 
@@ -506,6 +807,8 @@ def main() -> int:
         results = phase_kernels(cfg, params_np, peaks)
         # 3. main path
         launches = phase_main_path(tmp, cfg, params_np, smi)
+        # 4. serving path
+        phase_serving(cfg, params_np, smi, peaks)
 
     kernels = []
     for kname in ("mrf_fused", "fused_upsample_mrf"):

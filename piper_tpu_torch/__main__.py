@@ -5,6 +5,8 @@ reference CLI, src/python_run/piper/__main__.py). Modes:
 
   -f FILE          all of stdin as one text -> one WAV (stdout when '-'
                    or absent); its phrases are synthesised as one batch
+  --output-raw     each stdin line's sentences as raw audio on stdout,
+                   sentence by sentence (--raw-format s16le or mulaw)
   -d DIR           one WAV per stdin line ({"output_file"} with
                    --json-input, else DIR/<line number>.wav); --batch
                    synthesises all lines in one device batch (with the
@@ -27,6 +29,7 @@ from pathlib import Path
 import numpy as np
 
 from .config import SynthesisConfig
+from .runtime.codec import RAW_FORMATS, mulaw_encode
 from .runtime.voice import SynthesisStats, TorchVoice
 from .runtime.wav import write_wav
 
@@ -41,6 +44,12 @@ def build_parser() -> argparse.ArgumentParser:
                         help="Output WAV file (default: stdout)")
     parser.add_argument("-d", "--output-dir", "--output_dir",
                         help="Output directory for per-line WAVs")
+    parser.add_argument("--output-raw", "--output_raw", action="store_true",
+                        help="Stream raw audio to stdout")
+    parser.add_argument("--raw-format", "--raw_format", choices=list(RAW_FORMATS),
+                        default="s16le",
+                        help="Raw stream format: s16le int16 PCM (default, the "
+                             "reference's) or G.711 mu-law (half the bytes)")
     parser.add_argument("--json-input", action="store_true",
                         help="stdin lines are JSON objects (C++ CLI protocol)")
     parser.add_argument("-s", "--speaker", type=int, help="Speaker id")
@@ -59,14 +68,19 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
+def load_voice(args) -> TorchVoice:
+    """The voice the parsed arguments name (shared with the HTTP server)."""
+    return TorchVoice.load(
+        args.model, args.config, precision=args.precision, device=args.device
+    )
+
+
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
     level = logging.DEBUG if args.debug else logging.WARNING if args.quiet else logging.INFO
     logging.basicConfig(level=level)
 
-    voice = TorchVoice.load(
-        args.model, args.config, precision=args.precision, device=args.device
-    )
+    voice = load_voice(args)
     base_syn = SynthesisConfig(
         speaker_id=args.speaker,
         length_scale=args.length_scale,
@@ -89,7 +103,17 @@ def main(argv=None) -> None:
             syn.speaker_id = voice.config.speaker_id_map.get(str(obj["speaker"]))
         return obj["text"], syn, obj.get("output_file")
 
-    if args.output_dir:
+    if args.output_raw:
+        for line in sys.stdin:
+            if not line.strip():
+                continue
+            text, syn, _ = parse_line(line.strip())
+            for chunk in voice.synthesize_stream_raw(text, syn=syn, stats=stats):
+                if args.raw_format == "mulaw":
+                    chunk = mulaw_encode(np.frombuffer(chunk, "<i2")).tobytes()
+                sys.stdout.buffer.write(chunk)
+                sys.stdout.buffer.flush()
+    elif args.output_dir:
         out_dir = Path(args.output_dir)
         out_dir.mkdir(parents=True, exist_ok=True)
         lines = [parse_line(l.strip()) for l in sys.stdin if l.strip()]

@@ -24,7 +24,7 @@ fused_upsample_mrf. Any split computes the same function.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -235,6 +235,38 @@ def _tconv_tm(x_tm, w_phase, q0, used, bias):
     return out + bias.to(out.dtype)[None, :, None]
 
 
+def _tconv_tm_rows(x_tm, w_phase, q0, used, bias, lengths: Sequence[int]):
+    """_tconv_tm one row at a time, each at its own valid length (zeros
+    past it), so a row's bits do not depend on the batch it rides in:
+    cuBLAS picks its algorithm, split-K or not, by the product's shape,
+    and a split sums in another order, so a row decoded inside a batch
+    would round differently from the same row alone (chip_smoke.py
+    checks the bits)."""
+    b, _, v = x_tm.shape
+    u = used.shape[0]
+    out = torch.zeros((b, w_phase.shape[-1], v * u), dtype=x_tm.dtype, device=x_tm.device)
+    for r, n in enumerate(lengths):
+        if n:
+            out[r, :, : n * u] = _tconv_tm(x_tm[r : r + 1, :, :n], w_phase, q0, used, bias)[0]
+    return out
+
+
+def _nwc_stage_rows(p, i: int, x, lengths: Sequence[int], cfg: ModelConfig):
+    """Upsample stage i on the NWC path (cuDNN transposed conv, then
+    _mrf_nwc), (B, T, C_in) -> (B, T*u, C_out), one row at a time at its
+    own valid length (zeros past it), as _tconv_tm_rows and for its
+    reason: cuDNN picks its algorithm by the batch's shape."""
+    u, k = cfg.upsample_rates[i], cfg.upsample_kernel_sizes[i]
+    up = p["ups"][i]
+    out = x.new_zeros((x.shape[0], x.shape[1] * u, up["w"].shape[-1]))
+    for r, n in enumerate(lengths):
+        if n:
+            y = tnn.leaky_relu(x[r : r + 1, :n], LRELU_SLOPE)
+            y = tnn.conv1d_transpose(y, up["w"], up["b"], stride=u, padding=(k - u) // 2)
+            out[r, : n * u] = _mrf_nwc(p["resblocks"][i], y, None, cfg)[0]
+    return out
+
+
 def generator_tm_apply(
     p: Params,
     tm: Params,
@@ -243,10 +275,15 @@ def generator_tm_apply(
     *,
     cfg: ModelConfig,
     g: Optional[torch.Tensor] = None,
+    row_frames: Optional[Sequence[int]] = None,
 ) -> torch.Tensor:
     """Time-major generator. x: (B, T_frames, C) pre-masked latent;
     frame_lengths: (B,) valid frames. Returns (B, T*u_total); samples
-    past each row's length are not defined (compare valid samples)."""
+    past each row's length are not defined (compare valid samples).
+    The plain stages before the kernels run row by row (_nwc_stage_rows,
+    _tconv_tm_rows), so each row gives the bits it gives alone.
+    `row_frames`: the same lengths on the host, when the caller has them
+    (saves reading frame_lengths back)."""
     ks = tuple(cfg.resblock_kernel_sizes)
     ds = tuple(tuple(d) for d in cfg.resblock_dilation_sizes)
     start = tm_start_stage(cfg)
@@ -260,22 +297,19 @@ def generator_tm_apply(
         torch.arange(x.shape[1], device=x.device)[None, :, None] < lens[:, None, None]
     ).to(x.dtype)
     x = x * mask
+    host_lens = list(row_frames) if row_frames is not None else lens.tolist()
     for i in range(start):
         # wide early stages whose MRF tile does not fit shared memory
-        u, k = cfg.upsample_rates[i], cfg.upsample_kernel_sizes[i]
-        x = tnn.leaky_relu(x, LRELU_SLOPE)
-        x = tnn.conv1d_transpose(
-            x, p["ups"][i]["w"], p["ups"][i]["b"], stride=u, padding=(k - u) // 2
-        )
-        lens = lens * u
-        mask = torch.repeat_interleave(mask, u, dim=1)
-        x = _mrf_nwc(p["resblocks"][i], x * mask, mask, cfg)
+        x = _nwc_stage_rows(p, i, x, host_lens, cfg)
+        lens = lens * cfg.upsample_rates[i]
+        host_lens = [n * cfg.upsample_rates[i] for n in host_lens]
     x = x.transpose(1, 2).contiguous()  # (B, C, T)
     for i in range(start, fuse_from):
         u, k = cfg.upsample_rates[i], cfg.upsample_kernel_sizes[i]
         q0, used, _ = _tm_phase_plan(k, u)
         x = tnn.leaky_relu(x, LRELU_SLOPE)
-        x = _tconv_tm(x, tm["ups"][i], q0, used, tm["ups_b"][i]).contiguous()
+        x = _tconv_tm_rows(x, tm["ups"][i], q0, used, tm["ups_b"][i], host_lens)
+        host_lens = [n * u for n in host_lens]
         lens = lens * u
         pw, pb = tm["mrf"][i]
         x = V.mrf_fused(

@@ -17,7 +17,7 @@ MB-iSTFT and the VITS2 options raise NotImplementedError.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, NamedTuple, Optional, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -122,21 +122,25 @@ def synthesizer_vocode(
     cfg: ModelConfig,
     sid: Optional[torch.Tensor] = None,
     g: Optional[torch.Tensor] = None,
+    frames: Optional[Sequence[int]] = None,
 ) -> torch.Tensor:
     """Flow reverse + time-major HiFiGAN (models.py:719-720): z_p ->
     waveform (B, T_frames * upsample). Samples past each row's length
     are not defined. `params["dec_tm"]` holds generator.prepare_tm's
-    tables (TorchVoice attaches them)."""
+    tables (TorchVoice attaches them). `frames`: each row's valid frames
+    on the host, when known (generator_tm_apply's row_frames)."""
     check_supported(cfg)
     if g is None:
         g = speaker_embedding(params, cfg, sid)
     z = F.flow_apply(params["flow"], z_p, y_mask, cfg=cfg, g=g, reverse=True)
-    frame_lengths = y_mask[..., 0].sum(dim=1).to(torch.int32)
+    # counted, not summed in the mask's dtype: a bfloat16 sum rounds
+    # lengths past 256 frames (259 -> 260)
+    frame_lengths = (y_mask[..., 0] > 0).sum(dim=1).to(torch.int32)
     tm = params.get("dec_tm")
     if tm is None:
         tm = G.prepare_tm(params["dec"], cfg, z.dtype)
     return G.generator_tm_apply(
-        params["dec"], tm, z * y_mask, frame_lengths, cfg=cfg, g=g
+        params["dec"], tm, z * y_mask, frame_lengths, cfg=cfg, g=g, row_frames=frames
     )
 
 

@@ -20,7 +20,9 @@ Each wrapper takes its plain PyTorch version (`*_plain`, same signature
 and output layout) only when the input lies on the CPU. For a CUDA
 tensor it launches the kernel or raises; a failed build raises too.
 Each wrapper counts its kernel launches in a plain integer attribute
-(`mrf_fused.launches`, `fused_upsample_mrf.launches`).
+(`mrf_fused.launches`, `fused_upsample_mrf.launches`), bumped under a
+lock (`count_launch`) so the counts stay exact when several threads
+launch (a server's request handlers, its batcher, a background warm-up).
 
 The kernels choose their own time tiles against the 227 KB of shared
 memory a block may use, so the output of fused_upsample_mrf is exactly V
@@ -433,6 +435,16 @@ def _n_sm(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
+_count_lock = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """Add one to `wrapper.launches`. A read-modify-write of an attribute
+    is not atomic across threads, so it runs under a lock."""
+    with _count_lock:
+        wrapper.launches += 1
+
+
 # ---------------------------------------------------------------------------
 # mrf_fused
 # ---------------------------------------------------------------------------
@@ -489,7 +501,7 @@ def mrf_fused(
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _raise_on(rc, "mrf_fused")
-    mrf_fused.launches += 1
+    count_launch(mrf_fused)
     return out
 
 
@@ -634,7 +646,7 @@ def fused_upsample_mrf(
             cfg["smem"], torch.cuda.current_stream(dev).cuda_stream,
         )
     _raise_on(rc, "fused_upsample_mrf")
-    fused_upsample_mrf.launches += 1
+    count_launch(fused_upsample_mrf)
     return out
 
 

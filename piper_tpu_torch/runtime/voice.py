@@ -12,6 +12,18 @@ mu-law wire or long-form windows. A batch of id sequences runs as
   4. conversion to int16 on the device (fast) or float32 (parity), and
      one copy of every row's valid samples to the host.
 
+The batch is split as TpuVoice splits it: submit() enqueues the device
+work and starts the copy to the host (pinned memory, non_blocking, an
+event after it), collect() waits on that event and returns the
+waveforms, so a server's batcher can collect on another thread while
+its next batch is submitted. With `batcher` set (server/batcher.py),
+synthesize_batch and synthesize_stream_raw go through it.
+
+Threads: a server calls one voice from many threads. The generator of
+unseeded requests' seeds is guarded by a lock, and parity precision's
+TF32 flags (process-wide) are switched under one process-wide lock
+(_fp32_exact), so neither depends on another thread's timing.
+
 Noise: every utterance draws its own noise from (seed, crc32(ids)), as
 TpuVoice._content_hashes does (voice.py:923): duration noise for its own
 ids, frame noise in blocks of NOISE_BLOCK frames, each block seeded by
@@ -26,6 +38,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import threading
 import time
 import zlib
 from pathlib import Path
@@ -37,6 +50,7 @@ import torch
 from ..config import InferenceDefaults, ModelConfig, SynthesisConfig, VoiceConfig
 from ..models.vits import generator as G
 from ..models.vits import model as M
+from ..ops.cuda import vocoder as V
 from ..text.phonemes import phonemes_to_ids
 from ..text.phonemize import phonemize
 from ..weights.bridge import params_from_jax
@@ -73,16 +87,27 @@ def resolve_device(device: Union[None, str, torch.device]) -> torch.device:
     return dev
 
 
+# The TF32 switches are process-wide. Every parity call saves, clears and
+# restores them under this lock: two calls that interleaved would restore
+# each other's state, switching TF32 back on under a computation still
+# running or leaving it off for the process. Reentrant, so a parity call
+# may nest another.
+_FP32_LOCK = threading.RLock()
+
+
 @contextlib.contextmanager
 def _fp32_exact():
-    """Parity precision: no TF32 in matmuls or cuDNN convolutions."""
-    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+    """Parity precision: no TF32 in matmuls or cuDNN convolutions. Holds
+    _FP32_LOCK for its whole extent, so parity calls run one at a time
+    (a fast call running beside one sees TF32 off for that time)."""
+    with _FP32_LOCK:
+        saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            yield
+        finally:
+            torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
 
 
 def _split_phonemes(phones: List[str], max_ids: int, id_cost) -> List[List[str]]:
@@ -113,7 +138,8 @@ def _split_phonemes(phones: List[str], max_ids: int, id_cost) -> List[List[str]]
 
 
 def utterance_seed(seed: int, ids: Sequence[int]) -> int:
-    """The (seed, content hash) key of one utterance's noise."""
+    """The (seed, content hash) key of one utterance's noise. The seed is
+    taken mod 2^32, as everywhere (solo, batcher rows, streaming)."""
     crc = zlib.crc32(np.asarray(ids, np.int32).tobytes()) & 0x7FFFFFFF
     return ((seed & 0xFFFFFFFF) << 31) | crc
 
@@ -168,7 +194,9 @@ class TorchVoice:
         self.params = params_from_jax(params, model_cfg, self.device, self.dtype)
         self.params["dec_tm"] = G.prepare_tm(self.params["dec"], model_cfg, self.dtype)
         self.phoneme_buckets = batching.DEFAULT_PHONEME_BUCKETS
-        self._rng = np.random.default_rng(seed)
+        self._rng = np.random.default_rng(seed)  # seeds of unseeded rows
+        self._rng_lock = threading.Lock()
+        self.batcher = None  # server/batcher.CoalescingBatcher, when serving
 
     # ------------------------------------------------------------------
     # Loading
@@ -234,6 +262,16 @@ class TorchVoice:
     def _precision(self):
         return _fp32_exact() if self.precision == "parity" else contextlib.nullcontext()
 
+    def resolve_seeds(self, seeds: Sequence[Optional[int]]) -> List[int]:
+        """Each row's seed mod 2^32; a None row draws one from the voice's
+        generator (under its lock: request threads share it)."""
+        missing = sum(s is None for s in seeds)
+        drawn = iter(())
+        if missing:
+            with self._rng_lock:
+                drawn = iter(self._rng.integers(0, 2**32, missing).tolist())
+        return [next(drawn) if s is None else s & 0xFFFFFFFF for s in seeds]
+
     def synthesize_ids_batch(
         self,
         ids_list: Sequence[Sequence[int]],
@@ -242,71 +280,124 @@ class TorchVoice:
         stats: Optional[SynthesisStats] = None,
     ) -> List[np.ndarray]:
         """Synthesize many id sequences; returns float32 waveforms."""
+        return self.collect(self.submit(ids_list, syn=syn), stats=stats)
+
+    def submit(
+        self,
+        ids_list: Sequence[Sequence[int]],
+        *,
+        syn: Optional[SynthesisConfig] = None,
+        row_seeds: Optional[Sequence[Optional[int]]] = None,
+    ) -> dict:
+        """Enqueue a batch's device work and the copy of its samples to
+        the host; returns a handle for collect(). The only wait is for the
+        frame counts (one small copy per phoneme bucket).
+
+        `row_seeds` gives each row its own seed (a None row draws one),
+        overriding syn.seed: the batcher coalesces differently seeded
+        requests with it, and a row's audio equals a solo seeded submit's.
+        """
         syn = syn or SynthesisConfig()
         t0 = time.perf_counter()
-        if syn.seed is not None:
-            seeds = [syn.seed] * len(ids_list)
-        else:
-            seeds = [int(s) for s in self._rng.integers(0, 2**32, len(ids_list))]
+        if row_seeds is None:
+            row_seeds = [syn.seed] * len(ids_list)
+        seeds = self.resolve_seeds(row_seeds)
         keys = [utterance_seed(s, ids) for s, ids in zip(seeds, ids_list)]
+        event = None
         with torch.inference_mode(), self._precision():
             flat, rows = self._synthesize(ids_list, keys, syn)
-        # one device -> host copy of every row's valid samples
-        host = flat.cpu().numpy()
+            if self.device.type == "cuda":
+                # into pinned memory without waiting; collect() waits on
+                # the event, from whichever thread it runs on
+                host = torch.empty(flat.shape, dtype=flat.dtype, pin_memory=True)
+                host.copy_(flat, non_blocking=True)
+                event = torch.cuda.Event()
+                event.record(torch.cuda.current_stream(self.device))
+            else:
+                host = flat
+        return {"host": host, "event": event, "rows": rows, "n": len(ids_list), "t0": t0}
+
+    def collect(
+        self, handle: dict, *, stats: Optional[SynthesisStats] = None
+    ) -> List[np.ndarray]:
+        """Wait for a submit()ted batch; returns float32 waveforms."""
+        if handle["event"] is not None:
+            handle["event"].synchronize()
+        host = handle["host"].numpy()
         if host.dtype == np.int16:
             host = int16_to_float(host)
-        results = [np.zeros(0, np.float32)] * len(ids_list)
-        for idx, start, n in rows:
+        results = [np.zeros(0, np.float32)] * handle["n"]
+        for idx, start, n in handle["rows"]:
             results[idx] = host[start : start + n]
         if stats is not None:
-            stats.infer_seconds += time.perf_counter() - t0
-            stats.audio_seconds += sum(n for _, _, n in rows) / self.config.sample_rate
+            stats.infer_seconds += time.perf_counter() - handle["t0"]
+            stats.audio_seconds += sum(n for _, _, n in handle["rows"]) / self.config.sample_rate
         return results
+
+    def _scales(self, syn: SynthesisConfig) -> Tuple[float, float, float]:
+        """(noise_scale, length_scale, noise_w): the request's, else the voice's."""
+        inf = self.config.inference
+        return (
+            syn.noise_scale if syn.noise_scale is not None else inf.noise_scale,
+            syn.length_scale if syn.length_scale is not None else inf.length_scale,
+            syn.noise_w if syn.noise_w is not None else inf.noise_w,
+        )
+
+    def _speaker(self, syn: SynthesisConfig, b: int) -> Optional[torch.Tensor]:
+        if self.model_cfg.num_speakers <= 1:
+            return None
+        spk = syn.speaker_id if syn.speaker_id is not None else 0
+        return torch.full((b,), spk, dtype=torch.long, device=self.device)
+
+    def _encode(self, rows_ids, keys, bucket: int, syn: SynthesisConfig, sid):
+        """Encode rows padded to `bucket`, each with its own duration
+        noise; returns the EncodeResult and the rows' frame counts (the
+        one wait of the path)."""
+        b = len(rows_ids)
+        ids_arr = np.zeros((b, bucket), np.int64)
+        dur_noise = torch.zeros((b, bucket, 2))
+        for row, (ids, key) in enumerate(zip(rows_ids, keys)):
+            ids_arr[row, : len(ids)] = ids
+            dur_noise[row, : len(ids)] = duration_noise(key, len(ids))
+        _, length_scale, noise_w = self._scales(syn)
+        dev = self.device
+        enc = M.synthesizer_encode(
+            self.params, torch.from_numpy(ids_arr).to(dev),
+            torch.tensor([len(ids) for ids in rows_ids], device=dev), cfg=self.model_cfg,
+            noise_w_scale=noise_w, length_scale=length_scale,
+            dur_noise=dur_noise.to(dev), sid=sid, dtype=self.dtype,
+        )
+        return enc, enc.durations.sum(dim=-1).cpu().tolist()
+
+    def _latents(self, enc, keys, num_frames: int, syn: SynthesisConfig):
+        """z_p and y_mask at num_frames, each row's frame noise from its key."""
+        fnoise = torch.stack([
+            frame_noise(key, num_frames, self.model_cfg.inter_channels) for key in keys
+        ])
+        return M.synthesizer_latents(
+            self.params, enc, num_frames, cfg=self.model_cfg,
+            noise_scale=self._scales(syn)[0], frame_noise=fnoise.to(self.device),
+        )
 
     def _synthesize(
         self, ids_list, keys, syn: SynthesisConfig
     ) -> Tuple[torch.Tensor, List[Tuple[int, int, int]]]:
-        """Device part of synthesize_ids_batch: returns one flat tensor of
-        every row's valid samples and (index, start, n) per row."""
-        inf = self.config.inference
-        noise_scale = syn.noise_scale if syn.noise_scale is not None else inf.noise_scale
-        length_scale = syn.length_scale if syn.length_scale is not None else inf.length_scale
-        noise_w = syn.noise_w if syn.noise_w is not None else inf.noise_w
-        cfg, dev = self.model_cfg, self.device
-        u = cfg.upsample_factor
+        """Device part of submit: returns one flat tensor of every row's
+        valid samples and (index, start, n) per row."""
+        u = self.model_cfg.upsample_factor
         pieces: List[torch.Tensor] = []
         rows: List[Tuple[int, int, int]] = []
         pos = 0
         for bucket, indices in batching.group_by_bucket(
             [len(ids) for ids in ids_list], self.phoneme_buckets
         ):
-            b = len(indices)
-            ids_arr = np.zeros((b, bucket), np.int64)
-            dur_noise = torch.zeros((b, bucket, 2))
-            for row, idx in enumerate(indices):
-                n = len(ids_list[idx])
-                ids_arr[row, :n] = ids_list[idx]
-                dur_noise[row, :n] = duration_noise(keys[idx], n)
-            lengths = torch.tensor([len(ids_list[i]) for i in indices], device=dev)
-            sid = None
-            if cfg.num_speakers > 1:
-                spk = syn.speaker_id if syn.speaker_id is not None else 0
-                sid = torch.full((b,), spk, dtype=torch.long, device=dev)
-            enc = M.synthesizer_encode(
-                self.params, torch.from_numpy(ids_arr).to(dev), lengths, cfg=cfg,
-                noise_w_scale=noise_w, length_scale=length_scale,
-                dur_noise=dur_noise.to(dev), sid=sid, dtype=self.dtype,
+            rkeys = [keys[i] for i in indices]
+            sid = self._speaker(syn, len(indices))
+            enc, frames = self._encode([ids_list[i] for i in indices], rkeys, bucket, syn, sid)
+            z_p, y_mask = self._latents(enc, rkeys, max(max(frames), 1), syn)
+            audio = M.synthesizer_vocode(
+                self.params, z_p, y_mask, cfg=self.model_cfg, sid=sid, frames=frames
             )
-            frames = enc.durations.sum(dim=-1).cpu().tolist()
-            num_frames = max(max(frames), 1)
-            fnoise = torch.stack([
-                frame_noise(keys[idx], num_frames, cfg.inter_channels) for idx in indices
-            ])
-            z_p, y_mask = M.synthesizer_latents(
-                self.params, enc, num_frames, cfg=cfg, noise_scale=noise_scale,
-                frame_noise=fnoise.to(dev),
-            )
-            audio = M.synthesizer_vocode(self.params, z_p, y_mask, cfg=cfg, sid=sid)
             if self.precision == "fast":
                 # device-side int16 (voice.py:379-387): tanh output is in [-1, 1]
                 audio = torch.round(audio.float().clamp(-1.0, 1.0) * 32767.0).to(torch.int16)
@@ -318,7 +409,7 @@ class TorchVoice:
                 rows.append((idx, pos, n))
                 pos += n
         if not pieces:
-            return torch.zeros(0), rows
+            return torch.zeros(0, device=self.device), rows
         return torch.cat(pieces), rows
 
     def synthesize_batch(
@@ -330,7 +421,8 @@ class TorchVoice:
     ) -> List[List[np.ndarray]]:
         """Per text, its sentences as int16 PCM (reference: voice.py:114-138),
         with phrase splitting on silence phonemes (piper.cpp:508-537).
-        Every phrase of every text is synthesised in one batch."""
+        Every phrase of every text is synthesised in one batch (through
+        the batcher, when one is set)."""
         syn = syn or SynthesisConfig()
         sentences = [self.phonemize(text) for text in texts]
         phrase_ids: List[List[int]] = []
@@ -340,7 +432,12 @@ class TorchVoice:
                 for ids, sil in self._phrases(phonemes, syn):
                     phrase_ids.append(ids)
                     phrase_meta.append((t_idx, s_idx, sil))
-        audios = self.synthesize_ids_batch(phrase_ids, syn=syn, stats=stats)
+        batch_fn = (
+            self.batcher.synthesize_ids_batch
+            if self.batcher is not None
+            else self.synthesize_ids_batch
+        )
+        audios = batch_fn(phrase_ids, syn=syn, stats=stats)
         sentence_silence = int(syn.sentence_silence_seconds * self.config.sample_rate)
         parts: dict = {}
         for (t_idx, s_idx, sil), audio in zip(phrase_meta, audios):
@@ -432,6 +529,36 @@ class TorchVoice:
         wav_file.setnchannels(1)
         for chunk in self.synthesize_stream_raw(text, syn=syn, stats=stats):
             wav_file.writeframes(chunk)
+
+    # ------------------------------------------------------------------
+    # Warm-up
+    # ------------------------------------------------------------------
+
+    def warmup(self, batch_sizes: Sequence[int] = (1,), *, full: bool = False) -> None:
+        """Build the kernels (on CUDA) and run one encode per phoneme
+        bucket at each batch size. With `full`, also one whole batch
+        (encode, decode, copy to the host) per power-of-two row count up
+        to the largest batch size, at this voice's device and dtype: the
+        allocator's blocks, cuDNN's and cuBLAS's first calls and both
+        kernels' first launches, so no request pays for them."""
+        if self.device.type == "cuda":
+            V.build()
+        syn = SynthesisConfig(seed=0)
+        tok = min(3, self.model_cfg.num_symbols - 1)
+        with torch.inference_mode(), self._precision():
+            for b in sorted(set(batch_sizes)):
+                for pb in self.phoneme_buckets:
+                    rows = [[tok] * pb] * b
+                    self._encode(rows, [utterance_seed(0, r) for r in rows], pb, syn,
+                                 self._speaker(syn, b))
+        if not full:
+            return
+        b_max, rows = max(batch_sizes), 1
+        while True:
+            self.collect(self.submit([[1, 0] + [tok, 0] * 30 + [2]] * rows, syn=syn))
+            if rows >= b_max:
+                break
+            rows = min(2 * rows, b_max)
 
 
 def random_voice_config(model_cfg: ModelConfig) -> VoiceConfig:

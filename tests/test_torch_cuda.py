@@ -218,3 +218,160 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     assert torch.equal(V.mrf_fused(x, lengths, w, b, **kw), V.mrf_fused(x, lengths, w, b, **kw))
     xb = x.bfloat16()
     assert torch.equal(V.mrf_fused(xb, lengths, w.bfloat16(), b, **kw), V.mrf_fused(xb, lengths, w.bfloat16(), b, **kw))
+
+
+# ---------------------------------------------------------------------------
+# The serving slice on the card: streaming, submit/collect, warm-up
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def medium(dev):
+    """A random-weight medium voice (full width, text phonemes)."""
+    from piper_tpu_torch.config import ModelConfig
+    from piper_tpu_torch.models.vits.model import init_synthesizer_params
+    from piper_tpu_torch.runtime.voice import random_voice_config
+
+    cfg = ModelConfig.for_quality("medium", num_symbols=256)
+    return cfg, init_synthesizer_params(1, cfg), random_voice_config(cfg)
+
+
+def _medium_voice(medium, precision, device="cuda"):
+    from piper_tpu_torch.runtime.voice import TorchVoice
+
+    cfg, params, vcfg = medium
+    return TorchVoice(params, cfg, vcfg, precision=precision, device=device, seed=0)
+
+
+def _long_ids(n=90):
+    g = torch.Generator().manual_seed(n)
+    return [1, 0] + [int(x) for s in torch.randint(3, 256, (n,), generator=g) for x in (s, 0)] + [2]
+
+
+def test_streaming_on_card_matches_cpu(medium):
+    """Parity precision: the same seeded utterance streamed on the card
+    and on the CPU, chunk by chunk (atol 1e-3: float32 sums in another
+    order through the flows and the conv stack, as chip_smoke.py's card
+    vs CPU check)."""
+    from piper_tpu_torch.config import SynthesisConfig
+    from piper_tpu_torch.runtime.streaming import synthesize_stream_chunks
+
+    ids, syn = _long_ids(), SynthesisConfig(seed=3)
+    got = list(synthesize_stream_chunks(_medium_voice(medium, "parity"), ids, syn=syn))
+    ref = list(synthesize_stream_chunks(_medium_voice(medium, "parity", "cpu"), ids, syn=syn))
+    assert len(got) >= 3 and [len(c) for c in got] == [len(c) for c in ref]
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(torch.from_numpy(g), torch.from_numpy(r), atol=1e-3, rtol=0)
+
+
+@pytest.mark.parametrize("precision", ["parity", "fast"])
+def test_one_frame_final_chunk_on_card(medium, precision):
+    """136 frames stream as 45, 45, 45 and a final chunk of 1 frame (11
+    frames with its left context: stage-0 T = 88, shorter than one bf16
+    tile), each chunk through mrf_fused once and fused_upsample_mrf
+    twice; the chunks agree with one whole decode within the seam bounds
+    of the JAX package's streaming test."""
+    from piper_tpu_torch.models.vits import model as M
+    from piper_tpu_torch.runtime.streaming import StreamingDecoder
+
+    voice = _medium_voice(medium, precision)
+    cfg = voice.model_cfg
+    u = cfg.upsample_factor
+    g = torch.Generator().manual_seed(4)
+    z_p = torch.randn((1, 136, cfg.inter_channels), generator=g).to(voice.device, voice.dtype)
+    n0, n1 = V.mrf_fused.launches, V.fused_upsample_mrf.launches
+    chunks = list(StreamingDecoder(voice).stream(z_p, 136))
+    assert (V.mrf_fused.launches - n0, V.fused_upsample_mrf.launches - n1) == (4, 8)
+    assert [len(c) // u for c in chunks] == [45, 45, 45, 1]
+    with torch.inference_mode(), voice._precision():
+        mask = torch.ones((1, 136, 1), device=z_p.device, dtype=z_p.dtype)
+        whole = M.synthesizer_vocode(voice.params, z_p, mask, cfg=cfg)[0].float().cpu()
+    streamed = torch.cat([torch.from_numpy(c) for c in chunks])
+    assert torch.isfinite(streamed).all()
+    err = (streamed - whole).abs()
+    assert torch.quantile(err, 0.99) < 5e-3 and err.mean() < 1e-3
+
+
+def test_collect_on_another_thread(medium):
+    """fast: submit on this thread, collect on another (waiting on the
+    copy's event) gives synthesize_ids_batch's samples."""
+    import threading
+
+    import numpy as np
+
+    from piper_tpu_torch.config import SynthesisConfig
+
+    voice = _medium_voice(medium, "fast")
+    rows = [_long_ids(n) for n in (40, 25, 60)]
+    want = voice.synthesize_ids_batch(rows, syn=SynthesisConfig(seed=9))
+    handle = voice.submit(rows, syn=SynthesisConfig(seed=9))
+    assert handle["host"].is_pinned()
+    got = []
+    t = threading.Thread(target=lambda: got.extend(voice.collect(handle)))
+    t.start()
+    t.join(timeout=300)
+    assert len(got) == 3
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
+def test_request_racing_background_warmup_builds_once(medium, monkeypatch):
+    """A request that races the background warm-up waits for the kernels'
+    build (one nvcc per source) instead of starting a second one."""
+    import collections
+    import threading
+
+    from piper_tpu_torch.config import SynthesisConfig
+
+    calls = collections.Counter()
+    compile_ = V._compile
+
+    def counting_compile(name):
+        calls[name] += 1
+        return compile_(name)
+
+    monkeypatch.setattr(V, "_compile", counting_compile)
+    monkeypatch.setattr(V, "_libs", {})
+    voice = _medium_voice(medium, "fast")
+    warm = threading.Thread(target=voice.warmup, args=((1, 4),), kwargs=dict(full=True))
+    warm.start()
+    out = voice.synthesize_ids_batch([_long_ids(30)], syn=SynthesisConfig(seed=1))
+    warm.join(timeout=600)
+    assert not warm.is_alive() and len(out[0]) > 0
+    assert calls == {"mrf_fused": 1, "fused_upsample_mrf": 1}
+
+
+@pytest.mark.parametrize("precision", ["fast", "parity"])
+@pytest.mark.parametrize("quality", ["x-low", "medium", "high"])
+def test_coalesced_rows_equal_solo_rows_on_card(dev, quality, precision):
+    """What the batcher relies on: rows of several phoneme buckets and
+    lengths (past 256 frames, so a bfloat16 count would round), each with
+    its own seed, in one submit give each row's solo audio. On every
+    preset's stage split: x-low and medium run stage 0's transposed conv
+    row by row before mrf_fused; high runs its two wide cuDNN stages row
+    by row. fast (the serving precision): the same bits. parity: within
+    1e-6, not bit for bit: in the layers that run over the whole batch
+    (encoder, flows, conv_pre) cuBLAS and cuDNN pick their float32
+    algorithms by the batch's shape, which moves the samples by a few
+    1e-8."""
+    import numpy as np
+
+    from piper_tpu_torch.config import ModelConfig, SynthesisConfig
+    from piper_tpu_torch.models.vits.model import init_synthesizer_params
+    from piper_tpu_torch.runtime.voice import TorchVoice, random_voice_config
+
+    cfg = ModelConfig.for_quality(quality, num_symbols=256)
+    voice = TorchVoice(init_synthesizer_params(2, cfg), cfg, random_voice_config(cfg),
+                       precision=precision, device="cuda", seed=0)
+    rows = [_long_ids(n) for n in (5, 23, 40, 61, 90, 120, 14, 77)]
+    seeds = [3, 2**40 + 7, -5, 11, 0, 2**32 - 1, 8, 13]
+    together = voice.collect(voice.submit(rows, row_seeds=seeds))
+    frames = [len(a) // cfg.upsample_factor for a in together]
+    assert max(frames) > 256, frames
+    for i, (row, seed) in enumerate(zip(rows, seeds)):
+        alone = voice.synthesize_ids_batch([row], syn=SynthesisConfig(seed=seed))[0]
+        if precision == "fast":
+            np.testing.assert_array_equal(together[i], alone, err_msg=f"row {i} ({frames[i]} frames)")
+        else:
+            np.testing.assert_allclose(together[i], alone, atol=1e-6, rtol=0,
+                                       err_msg=f"row {i} ({frames[i]} frames)")
