@@ -18,21 +18,36 @@ Phases (any failure makes the exit code non-zero):
      medium voice): WAV checks, determinism, a row alone vs in a batch,
      the kernels' launch counts, the time-major generator against the
      plain generator, the card against the CPU on a small input, and the
-     speed of a warm batch;
+     speed of a warm batch; then python -m piper_tpu_torch.benchmark
+     --batch on the same voice (the reference's JSONL protocol; its
+     warm-up captures every CUDA graph its timed runs replay);
   4. the serving path: the HTTP server in this process with the
-     coalescing batcher on, after a full warm-up; /health and /metrics;
-     two bursts of 16 concurrent GETs of / (each equal to the same
-     request served alone, fewer batches than requests, one mrf_fused
-     and two fused_upsample_mrf launches per decode); a measurement
-     window of 320 GETs from 16 closed-loop clients (p50/p99 latency,
-     requests/s, every response checked); POST /batch; a chunked /stream
-     (framing, sample count, one mrf_fused and two fused_upsample_mrf
-     launches per chunk) cold and 24 times warm (time to first chunk
-     p50/p99); the seams of streaming in parity precision against one
+     coalescing batcher on, after a full warm-up (the CUDA graphs of
+     every encode, flow and streamed-chunk shape: their capture time and
+     memory, and each graph kind's replay against its eager run, bit for
+     bit); /health and /metrics; two bursts of 16 concurrent GETs of /
+     (each equal to the same request served alone, fewer batches than
+     requests, one mrf_fused and two fused_upsample_mrf launches per
+     decode of the batch's plan); a measurement window of 320 GETs from
+     16 closed-loop clients under decode_grouping uniform and bucketed
+     (p50/p99 latency, requests/s, every response checked, submit's host
+     time by span, the device's idle share from a profiled rerun); POST
+     /batch; a chunked /stream (framing, sample count, one replay of the
+     chunk graph with one mrf_fused and two fused_upsample_mrf launches
+     per chunk) cold and 24 times warm (time to first chunk p50/p99);
+     /streams on 4 threads while 16 clients' GETs are coalesced (every
+     response equal to the request alone: the graphs share one memory
+     pool); the seams of streaming in parity precision against one
      whole decode; both bf16 kernels at the streaming chunk's shape;
   5. one JSON line of per-kernel numbers, then the device line.
 
 Needs one CUDA card; prints no result and exits non-zero without one.
+
+    python3 chip_smoke.py --measure DIR
+
+measures the checkout in DIR instead (see measure()): run it on this
+checkout and on its parent, unpacked into a directory .gitignore lists,
+in turns within one call, to compare two versions on one card.
 """
 
 from __future__ import annotations
@@ -196,7 +211,6 @@ def phase_kernels(cfg, params_np, peaks, frames=(403, 396, 5), dtypes=None):
 
     from piper_tpu_torch.models.vits import generator as G
     from piper_tpu_torch.ops.cuda import vocoder as V
-    from piper_tpu_torch.runtime.voice import _fp32_exact
     from piper_tpu_torch.weights.bridge import params_from_jax
 
     bf16_peak, f32_peak, bw = peaks
@@ -212,8 +226,7 @@ def phase_kernels(cfg, params_np, peaks, frames=(403, 396, 5), dtypes=None):
         tm = G.prepare_tm(dec, cfg, dtype)
         x0, lens0 = stage_inputs(cfg, frames, dtype, seed=11)
         b, esize = x0.shape[0], x0.element_size()
-        ctx = _fp32_exact() if dtype == torch.float32 else contextlib.nullcontext()
-        with ctx, torch.inference_mode():
+        with torch.inference_mode():
             # --- mrf_fused, stage 0 ---
             pw, pb = tm["mrf"][0]
             kw = dict(kernel_sizes=ks, dilation_sizes=ds, resblock_type=rb)
@@ -370,7 +383,7 @@ def phase_main_path(tmp: Path, cfg, params_np, card: str):
 
     from piper_tpu_torch.models.vits import generator as G
     from piper_tpu_torch.ops.cuda import vocoder as V
-    from piper_tpu_torch.runtime.voice import TorchVoice, _fp32_exact
+    from piper_tpu_torch.runtime.voice import TorchVoice
     from piper_tpu_torch.weights.bridge import params_from_jax
 
     voice = str(tmp / "voice.npz")
@@ -408,7 +421,7 @@ def phase_main_path(tmp: Path, cfg, params_np, card: str):
     check(n_diff == 0, "a row alone equals the same row inside the batch")
 
     # time-major generator (kernels) against the plain generator (cuDNN), f32
-    with _fp32_exact(), torch.inference_mode():
+    with torch.inference_mode():
         dec = params_from_jax(params_np, cfg, "cuda", torch.float32)["dec"]
         tm = G.prepare_tm(dec, cfg, torch.float32)
         frames = torch.tensor([97, 60, 9], dtype=torch.int32)
@@ -565,10 +578,207 @@ def profile_stream(port, path):
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<4d} {e.key[:90]}")
 
 
+def serve_in_process(voice):
+    """The HTTP server on `voice` in this process, with the coalescing
+    batcher (4 ms window, 16 rows): (server, port, thread)."""
+    import threading
+
+    from piper_tpu_torch.server.batcher import CoalescingBatcher
+    from piper_tpu_torch.server.http_server import serve
+
+    voice.batcher = CoalescingBatcher(voice, window_ms=4.0, max_batch=16)
+    server = serve(voice, host="127.0.0.1", port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    return server, server.server_address[1], thread
+
+
+def stop_serving(server, thread, voice) -> None:
+    server.shutdown()
+    server.server_close()
+    thread.join(timeout=30)
+    voice.batcher.close()
+
+
+def window_paths():
+    """The window's 16 requests: 4 texts, seeds 0-15."""
+    import urllib.parse
+
+    return [f"/?text={urllib.parse.quote(TEXTS[i % len(TEXTS)])}&seed={i}" for i in range(16)]
+
+
+def clients(port, paths, n_clients, rounds):
+    """n_clients threads, each sending `rounds` GETs one after another
+    (client i's k-th is paths[(i + k) % len(paths)]); returns
+    [(path index, (status, headers, body, s))] and the wall."""
+    import threading
+
+    got = [[] for _ in range(n_clients)]
+    barrier = threading.Barrier(n_clients)
+
+    def client(i):
+        barrier.wait()
+        for k in range(rounds):
+            j = (i + k) % len(paths)
+            got[i].append((j, http_get(port, paths[j])))
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(n_clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    return [r for rs in got for r in rs], time.perf_counter() - t0
+
+
+def profiled_window(port, paths, rounds):
+    """The window again under torch.profiler: (GETs, wall s, device busy
+    s, the kernels' time summed)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        got, wall = clients(port, paths, 16, rounds)
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if str(getattr(e, "device_type", "")).endswith("CUDA")) / 1e6
+    return len(got), wall, busy
+
+
+def timed_streams(port, path, n):
+    """n /streams one after another: (chunk payloads of each, seconds to
+    the first chunk of each, seconds to the end of each)."""
+    chunks, firsts, totals = [], [], []
+    for _ in range(n):
+        _, c, f, t = http_stream(port, path)
+        chunks.append(c)
+        firsts.append(f)
+        totals.append(t)
+    return chunks, firsts, totals
+
+
+def check_graphs(voice) -> None:
+    """Each graph kind, replayed with new inputs, gives the bits of its
+    function run eagerly on the same inputs: the encode and flow graphs
+    of a two-bucket batch and the streamed chunk's graph."""
+    import torch
+
+    from piper_tpu_torch.runtime.streaming import StreamingDecoder
+
+    calls = []
+    run = voice.graphs.run
+
+    def spying_run(key, fn, inputs):
+        out = run(key, fn, inputs)
+        calls.append((key, fn, [None if x is None else x.to(voice.device) for x in inputs], out))
+        return out
+
+    voice.graphs.run = spying_run
+    try:
+        rows = [[1, 0] + [40 + (7 * i + j) % 90 for i in range(n)] + [0, 2] for j, n in
+                enumerate((12, 20, 26, 50, 61))]
+        voice.synthesize_ids_batch(rows, syn=_syn(seed=5))
+        g = torch.Generator().manual_seed(2)
+        z_p = torch.randn((1, 130, voice.model_cfg.inter_channels), generator=g).to("cuda", voice.dtype)
+        list(StreamingDecoder(voice).stream(z_p, 130))
+    finally:
+        voice.graphs.run = run
+    same = 0
+    with torch.inference_mode():
+        for key, fn, inputs, out in calls:
+            eager = fn(*inputs)
+            same += all(torch.equal(e, o) for e, o in zip(eager, out))
+    kinds = sorted({key[0] for key, *_ in calls})
+    check(kinds == ["chunk", "encode", "flow"] and same == len(calls),
+          f"CUDA graph replay equals eager execution bit for bit: {same} of {len(calls)} replays "
+          f"({', '.join(kinds)})")
+
+
+def phase_benchmark(tmp: Path, card: str) -> None:
+    """python -m piper_tpu_torch.benchmark on the card, in this process:
+    the reference's stdin-JSONL protocol, per-utterance RTF and --batch."""
+    import numpy as np
+
+    from piper_tpu_torch import benchmark as B
+    from piper_tpu_torch.ops.cuda import vocoder as V
+    from piper_tpu_torch.runtime.graphs import GraphCache
+
+    rng = np.random.default_rng(0)
+    lines = [json.dumps({"phoneme_ids": [1] + [int(x) for x in rng.integers(32, 120, 40 + 20 * i)] + [2]})
+             for i in range(8)]
+    V.mrf_fused.launches = 0
+    V.fused_upsample_mrf.launches = 0
+    # captures made in the benchmark's process, and how many of them its
+    # warm-up had made: its timed runs (default --repeat 1) must only replay
+    captures, warmed = [], []
+    capture, warm = GraphCache._capture, B.warm
+
+    def counting_capture(self, *a):
+        captures.append(a[0])
+        return capture(self, *a)
+
+    def marking_warm(*a, **k):
+        warm(*a, **k)
+        warmed.append(len(captures))
+
+    saved, out = sys.stdin, io.StringIO()
+    sys.stdin = io.StringIO("\n".join(lines) + "\n")
+    GraphCache._capture, B.warm = counting_capture, marking_warm
+    try:
+        with contextlib.redirect_stdout(out):
+            B.main(["-m", str(tmp / "voice.npz"), "--batch", "--seed", "0"])
+    finally:
+        sys.stdin = saved
+        GraphCache._capture, B.warm = capture, warm
+    check(warmed == [len(captures)] and len(captures) > 0,
+          f"the benchmark's warm-up captured {warmed[0] if warmed else None} CUDA graphs, its timed runs "
+          f"{len(captures) - warmed[0] if warmed else None}")
+    n_mrf, n_fused = V.mrf_fused.launches, V.fused_upsample_mrf.launches
+    report = json.loads(out.getvalue().strip().splitlines()[-1])
+    ok = (set(report) == {"load_sec", "rtf_mean", "rtf_stdev", "rtfs", "batch"} and len(report["rtfs"]) == 8
+          and report["batch"]["utterances"] == 8 and report["batch"]["audio_seconds_per_s_per_chip"] > 0)
+    check(ok, f"python -m piper_tpu_torch.benchmark --batch on the card: report {json.dumps(report)}  [{card}]")
+    check(n_mrf >= 1 and n_fused == 2 * n_mrf,
+          f"the benchmark launched mrf_fused {n_mrf} and fused_upsample_mrf {n_fused} times")
+
+
+def mixed_streams_and_batches(port, paths, alone, card) -> None:
+    """/streams on 4 threads, one after another on each, while 16
+    clients send GETs of / that the batcher coalesces: the streams
+    replay the encode and chunk graphs, the batches the encode and flow
+    graphs, and all graphs share one memory pool. Every response equals
+    the same request served alone."""
+    import threading
+    import urllib.parse
+
+    texts = (STREAM_TEXT, TEXTS[0], TEXTS[3], TEXTS[2])
+    qs = [f"/stream?text={urllib.parse.quote(t)}&seed={4 + i}" for i, t in enumerate(texts)]
+    solo = [http_stream(port, q)[1] for q in qs]
+    streamed = [[] for _ in qs]
+    done = threading.Event()
+
+    def streamer(i):
+        while not done.is_set() or not streamed[i]:
+            streamed[i].append(http_stream(port, qs[i])[1])
+
+    threads = [threading.Thread(target=streamer, args=(i,)) for i in range(len(qs))]
+    for t in threads:
+        t.start()
+    try:
+        got, wall = clients(port, paths, 16, 4)
+    finally:
+        done.set()
+        for t in threads:
+            t.join(timeout=300)
+    same_get = sum(g[0] == 200 and g[2] == alone[j][2] for j, g in got)
+    n_streams = sum(len(c) for c in streamed)
+    same_stream = sum(c == solo[i] for i, cs in enumerate(streamed) for c in cs)
+    check(len(got) == 64 and same_get == 64 and n_streams >= 4 and same_stream == n_streams,
+          f"streams and coalesced batches at once ({wall:.3f} s): {same_get} of {len(got)} GETs and "
+          f"{same_stream} of {n_streams} /streams on 4 threads equal the request served alone  [{card}]")
+
+
 def phase_serving(cfg, params_np, card, peaks):
     """The HTTP server with the batcher on a fast voice on the card."""
     import base64
-    import threading
     import urllib.parse
 
     import numpy as np
@@ -576,16 +786,19 @@ def phase_serving(cfg, params_np, card, peaks):
 
     from piper_tpu_torch.models.vits import model as M
     from piper_tpu_torch.ops.cuda import vocoder as V
-    from piper_tpu_torch.runtime.batching import group_by_bucket, pick_bucket
+    from piper_tpu_torch.runtime.batching import pick_bucket
+    from piper_tpu_torch.runtime.profiling import StageTimer
     from piper_tpu_torch.runtime.streaming import StreamingDecoder
     from piper_tpu_torch.runtime.voice import TorchVoice, utterance_seed
-    from piper_tpu_torch.server.batcher import CoalescingBatcher
-    from piper_tpu_torch.server.http_server import serve
 
     voice = TorchVoice(params_np, cfg, _voice_cfg(cfg), precision="fast", device="cuda", seed=0)
     t0 = time.perf_counter()
     voice.warmup((1, 16), full=True)
-    print(f"serving: warmup((1, 16), full=True) {time.perf_counter() - t0:.3f} s")
+    stats = voice.graphs.stats
+    print(f"serving: warmup((1, 16), full=True) {time.perf_counter() - t0:.3f} s; {stats['captures']} CUDA "
+          f"graphs captured in {stats['capture_s']:.3f} s (eager warm runs included), "
+          f"{voice.graphs.memory_bytes() / 2**20:.1f} MiB of device memory held by the graphs  [{card}]")
+    check_graphs(voice)
     # every phrase of the burst below in one batch, against each alone:
     # the largest composition the batcher can form, fixed (the burst's
     # own windows vary from run to run)
@@ -600,18 +813,14 @@ def phase_serving(cfg, params_np, card, peaks):
                for t, p, s in zip(together, phrases, seeds))
     check(same == len(phrases), f"{same} of {len(phrases)} phrases in one batch of {len(phrases)} equal "
                                 "the phrase alone, bit for bit")
-    voice.batcher = CoalescingBatcher(voice, window_ms=4.0, max_batch=16)
-    server = serve(voice, host="127.0.0.1", port=0)
-    port = server.server_address[1]
-    thread = threading.Thread(target=server.serve_forever, daemon=True)
-    thread.start()
+    server, port, thread = serve_in_process(voice)
     try:
         for path in ("/health", "/metrics"):
             status, _, body, _ = http_get(port, path)
             check(status == 200 and isinstance(json.loads(body), dict), f"GET {path} answers: {body[:120]!r}")
 
         # 16 concurrent GETs, each against the same request served alone
-        paths = [f"/?text={urllib.parse.quote(TEXTS[i % len(TEXTS)])}&seed={i}" for i in range(16)]
+        paths = window_paths()
         alone = [http_get(port, p) for p in paths]
         solo = sorted(a[3] for a in alone)
         print(f"serving: 16 GETs one at a time (smoke observation, 16 samples): latency p50 "
@@ -624,8 +833,7 @@ def phase_serving(cfg, params_np, card, peaks):
         def timed_submit(ids_list, **kw):
             t0 = time.perf_counter()
             handle = submit(ids_list, **kw)
-            decodes = len(group_by_bucket([len(ids) for ids in ids_list], voice.phoneme_buckets))
-            submits.append((len(ids_list), decodes, round(time.perf_counter() - t0, 4)))
+            submits.append((len(ids_list), handle["decodes"], round(time.perf_counter() - t0, 4)))
             return handle
 
         def check_launches(what):
@@ -642,33 +850,12 @@ def phase_serving(cfg, params_np, card, peaks):
 
         voice.submit = timed_submit
 
-        def clients(n_clients, rounds):
-            """n_clients threads, each sending `rounds` GETs one after
-            another (client i's k-th is paths[(i + k) % 16]); returns
-            [(path index, (status, headers, body, s))] and the wall."""
-            got = [[] for _ in range(n_clients)]
-            barrier = threading.Barrier(n_clients)
-
-            def client(i):
-                barrier.wait()
-                for k in range(rounds):
-                    j = (i + k) % len(paths)
-                    got[i].append((j, http_get(port, paths[j])))
-
-            threads = [threading.Thread(target=client, args=(i,)) for i in range(n_clients)]
-            t0 = time.perf_counter()
-            for t in threads:
-                t.start()
-            for t in threads:
-                t.join(timeout=300)
-            return [r for rs in got for r in rs], time.perf_counter() - t0
-
         # two bursts of 16 concurrent GETs: correctness checks; their times
         # are smoke observations (16 samples each)
         for run in ("first", "second"):
             before = dict(voice.batcher.stats)
             reset_counts()
-            got, wall = clients(16, 1)
+            got, wall = clients(port, paths, 16, 1)
             batches = voice.batcher.stats["batches"] - before["batches"]
             n_ok = sum(g[0] == 200 for _, g in got)
             check(len(got) == 16 and n_ok == 16,
@@ -686,25 +873,37 @@ def phase_serving(cfg, params_np, card, peaks):
             check_launches(f"the {run} burst")
 
         # the measurement window: 16 clients in a closed loop at the burst's
-        # mix, WINDOW_ROUNDS requests each
-        before = dict(voice.batcher.stats)
-        reset_counts()
-        got, wall = clients(16, WINDOW_ROUNDS)
-        batches = voice.batcher.stats["batches"] - before["batches"]
-        n = len(got)
-        n_ok = sum(g[0] == 200 for _, g in got)
-        same = sum(g[0] == 200 and g[2] == alone[j][2] for j, g in got)
-        check(n == 16 * WINDOW_ROUNDS and n_ok == n and same == n,
-              f"window: {n} GETs sent, {n_ok} succeeded, {same} equal the request served alone")
-        check_launches("the window")
-        lat = np.array([g[3] for _, g in got])
-        rows = [r for r, _, _ in submits]
-        print(f"serving: window of {n} GETs from 16 closed-loop clients in {wall} s: {n / wall} requests/s, "
-              f"latency p50 {np.percentile(lat, 50)} s, p99 {np.percentile(lat, 99)} s, max {lat.max()} s; "
-              f"{batches} batches, rows per batch mean {np.mean(rows) if rows else 0:.2f}, "
-              f"decodes per batch mean {np.mean([d for _, d, _ in submits]) if submits else 0:.2f}, "
-              f"s in submit p50 {np.percentile([t for _, _, t in submits], 50) if submits else 0}  [{card}]",
-              flush=True)
+        # mix, WINDOW_ROUNDS requests each, under each decode grouping
+        # (uniform: the server's default), then the same window again
+        # under the profiler for the device's busy and idle share
+        for grouping in ("uniform", "bucketed"):
+            voice.decode_grouping = grouping
+            before = dict(voice.batcher.stats)
+            reset_counts()
+            voice.timer = StageTimer()
+            got, wall = clients(port, paths, 16, WINDOW_ROUNDS)
+            spans, voice.timer = voice.timer.report(), None
+            batches = voice.batcher.stats["batches"] - before["batches"]
+            n = len(got)
+            n_ok = sum(g[0] == 200 for _, g in got)
+            same = sum(g[0] == 200 and g[2] == alone[j][2] for j, g in got)
+            check(n == 16 * WINDOW_ROUNDS and n_ok == n and same == n,
+                  f"window ({grouping}): {n} GETs sent, {n_ok} succeeded, {same} equal the request "
+                  "served alone")
+            check_launches(f"the window ({grouping})")
+            lat = np.array([g[3] for _, g in got])
+            rows = [r for r, _, _ in submits]
+            print(f"serving: window ({grouping}) of {n} GETs from 16 closed-loop clients in {wall} s: "
+                  f"{n / wall} requests/s, latency p50 {np.percentile(lat, 50)} s, p99 "
+                  f"{np.percentile(lat, 99)} s, max {lat.max()} s; {batches} batches, rows per batch mean "
+                  f"{np.mean(rows) if rows else 0:.2f}, decodes per batch mean "
+                  f"{np.mean([d for _, d, _ in submits]) if submits else 0:.2f}, s in submit p50 "
+                  f"{np.percentile([t for _, _, t in submits], 50) if submits else 0}  [{card}]", flush=True)
+            print(f"serving: window ({grouping}), host time of submit by span (StageTimer): "
+                  f"{json.dumps(spans)}", flush=True)
+            n, wall, busy = profiled_window(port, paths, WINDOW_ROUNDS)
+            print(f"serving: window ({grouping}) under the profiler ({n} GETs in {wall} s): device "
+                  f"busy {busy} s, idle share {1 - busy / wall}  [{card}]", flush=True)
         voice.submit = submit
 
         status, _, body, _ = http_get(port, "/batch?seed=3", data=json.dumps({"texts": TEXTS}).encode(),
@@ -718,8 +917,13 @@ def phase_serving(cfg, params_np, card, peaks):
         _, cold_chunks, cold_first, cold_total = http_stream(port, q)
         V.mrf_fused.launches = 0
         V.fused_upsample_mrf.launches = 0
+        graphs0 = dict(voice.graphs.stats)
         headers, chunks, first, total = http_stream(port, q)
         n_mrf, n_fused = V.mrf_fused.launches, V.fused_upsample_mrf.launches
+        replays = voice.graphs.stats["replays"] - graphs0["replays"]
+        check(voice.graphs.stats["captures"] == graphs0["captures"] and replays == len(chunks) + 1,
+              f"/stream ran through the warm graphs: {replays} replays (its encode and {len(chunks)} "
+              f"chunks), {voice.graphs.stats['captures'] - graphs0['captures']} new captures")
         pcm = np.frombuffer(b"".join(chunks), "<i2")
         ids = voice.phonemes_to_ids(voice.phonemize(STREAM_TEXT)[0])
         batched = voice.synthesize_ids_batch([ids], syn=_syn(seed=4))[0]
@@ -730,12 +934,9 @@ def phase_serving(cfg, params_np, card, peaks):
         check(n_mrf == len(chunks) and n_fused == 2 * len(chunks),
               f"/stream launched mrf_fused {n_mrf} and fused_upsample_mrf {n_fused} times for "
               f"{len(chunks)} chunks")
-        firsts, totals, same = [first], [total], 1
-        for _ in range(STREAMS - 1):
-            _, c, f, t = http_stream(port, q)
-            firsts.append(f)
-            totals.append(t)
-            same += c == chunks
+        warm_chunks, firsts, totals = timed_streams(port, q, STREAMS - 1)
+        firsts, totals = [first] + firsts, [total] + totals
+        same = 1 + sum(c == chunks for c in warm_chunks)
         check(same == STREAMS, f"{same} of {STREAMS} warm streams give the same bytes")
         print(f"serving: /stream of {audio_s} audio-s in {len(chunks)} chunks, {STREAMS} warm streams one "
               f"after another: time to first chunk p50 {np.percentile(firsts, 50)} s, p99 "
@@ -744,18 +945,17 @@ def phase_serving(cfg, params_np, card, peaks):
               f"cold (first stream of the process, one sample): first chunk {cold_first} s, whole "
               f"{cold_total} s  [{card}]", flush=True)
         profile_stream(port, q)
+        mixed_streams_and_batches(port, paths, alone, card)
     finally:
-        server.shutdown()
-        server.server_close()
-        thread.join(timeout=30)
-        voice.batcher.close()
+        stop_serving(server, thread, voice)
 
     # the seams: streaming in parity precision against one whole decode
     parity = TorchVoice(params_np, cfg, _voice_cfg(cfg), precision="parity", device="cuda", seed=0)
     key = utterance_seed(4, ids)
-    with torch.inference_mode(), parity._precision():
+    with torch.inference_mode():
         bucket = pick_bucket(len(ids), parity.phoneme_buckets)
-        enc, frames = parity._encode([ids], [key], bucket, _syn(seed=4), None)
+        enc, frames_dev = parity._encode([ids], [key], bucket, _syn(seed=4))
+        frames = parity._read_frames([frames_dev])[0]
         z_p, y_mask = parity._latents(enc, [key], frames[0], _syn(seed=4))
         whole = M.synthesizer_vocode(parity.params, z_p, y_mask, cfg=cfg)[0].float().cpu().numpy()
     streamed = np.concatenate(list(StreamingDecoder(parity).stream(z_p, frames[0])))
@@ -771,14 +971,176 @@ def phase_serving(cfg, params_np, card, peaks):
         phase_kernels(cfg, params_np, peaks, frames=frames_chunk, dtypes=(torch.bfloat16,))
 
 
-def main() -> int:
+SPANNED = ("submit", "_encode", "_read_frames", "_latents", "_flow")
+
+
+def span_methods(cls):
+    """Time every method of SPANNED that `cls` has, at class level (each
+    checkout names its steps differently): returns {name: [calls, s]},
+    which the caller clears between measurements."""
+    import threading
+    from collections import defaultdict
+
+    spans = defaultdict(lambda: [0, 0.0])
+    lock = threading.Lock()
+
+    def timed(name, fn):
+        def run(self, *a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(self, *a, **k)
+            finally:
+                dt = time.perf_counter() - t0
+                with lock:
+                    spans[name][0] += 1
+                    spans[name][1] += dt
+
+        return run
+
+    for name in SPANNED:
+        if hasattr(cls, name):
+            setattr(cls, name, timed(name, getattr(cls, name)))
+    return spans
+
+
+def per_submit_ms(spans):
+    """Host ms per submit of each spanned method, and the rest of submit."""
+    n = max(spans.get("submit", [0, 0.0])[0], 1)
+    parts = {k.lstrip("_"): s / n * 1e3 for k, (_, s) in spans.items() if k != "submit"}
+    total = spans.get("submit", [0, 0.0])[1] / n * 1e3
+    parts["rest_of_submit"] = total - sum(parts.values())
+    return {"submits": spans.get("submit", [0, 0.0])[0], "submit_ms": total, "parts_ms": parts}
+
+
+def measure(root: str) -> int:
+    """python3 chip_smoke.py --measure DIR: the numbers of the checkout
+    in DIR (this one, or its parent unpacked beside it), so that two
+    versions run the same measurement in one call on one card; one JSON
+    line. The cold main path (the CLI's first run in a fresh process,
+    after the kernels' build, then a second run) with submit's host time
+    by method; a warm batch (16 rows) with its device time by kernel;
+    after warmup((1, 16), full=True), the serving window of phase 4 under
+    the server's default grouping with submit's host time by method, its
+    profiled rerun's idle share, and STREAMS warm /streams."""
+    import urllib.parse
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    sys.path.insert(0, str(Path(root).resolve()))
+    from piper_tpu_torch.ops.cuda import vocoder as V
+    from piper_tpu_torch.runtime import voice as RV
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    spans = span_methods(RV.TorchVoice)
+    decodes = []
+    submit = RV.TorchVoice.submit
+
+    def counting_submit(self, *a, **k):
+        handle = submit(self, *a, **k)
+        decodes.append(handle.get("decodes", 0))
+        return handle
+
+    RV.TorchVoice.submit = counting_submit
+    out = {"root": root, "card": card}
+    t0 = time.perf_counter()
+    V.build()
+    out["build_s"] = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        cfg, params_np = make_voice(tmp)
+        for run in ("cold", "second"):
+            spans.clear()
+            decodes.clear()
+            t0 = time.perf_counter()
+            run_cli(["-m", str(tmp / "voice.npz"), "-d", str(tmp / run), "--batch", "--seed", "1", "-q"],
+                    TEXTS)
+            out[f"cli_{run}"] = {"wall_s": time.perf_counter() - t0, "decodes": sum(decodes),
+                                 **per_submit_ms(spans)}
+
+    fast = RV.TorchVoice(params_np, cfg, _voice_cfg(cfg), precision="fast", device="cuda")
+    rng = np.random.default_rng(0)
+    rows = [[1, 0] + [int(t) for t in rng.integers(3, 256, 250)] + [0, 2] for _ in range(16)]
+    for _ in range(2):  # a graph is captured at its key's second call
+        fast.synthesize_ids_batch(rows, syn=_syn(seed=7))
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        fast.synthesize_ids_batch(rows, syn=_syn(seed=7))
+        times.append(time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fast.synthesize_ids_batch(rows, syn=_syn(seed=7))
+    events = [e for e in prof.key_averages() if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    out["warm_batch"] = {
+        "wall_ms": [t * 1e3 for t in times],
+        "device_ms": sum(e.self_device_time_total for e in events) / 1e3,
+        "top_kernels_ms": [[e.key[:60], e.self_device_time_total / 1e3, e.count] for e in
+                           sorted(events, key=lambda e: -e.self_device_time_total)[:8]],
+    }
+    del fast
+
+    voice = RV.TorchVoice(params_np, cfg, _voice_cfg(cfg), precision="fast", device="cuda", seed=0)
+    if hasattr(voice, "decode_grouping"):
+        voice.decode_grouping = "uniform"  # the HTTP server's default
+    t0 = time.perf_counter()
+    voice.warmup((1, 16), full=True)
+    out["warmup_s"] = time.perf_counter() - t0
+    if hasattr(voice, "graphs"):
+        out["graphs"] = {**voice.graphs.stats, "mib": voice.graphs.memory_bytes() / 2**20}
+    server, port, thread = serve_in_process(voice)
+    try:
+        paths = window_paths()
+        for p in paths:  # the request path once
+            http_get(port, p)
+        spans.clear()
+        decodes.clear()
+        batches0 = voice.batcher.stats["batches"]
+        got, wall = clients(port, paths, 16, WINDOW_ROUNDS)
+        lat = [g[3] for _, g in got]
+        out["window"] = {
+            "requests": len(got), "ok": sum(g[0] == 200 for _, g in got), "wall_s": wall,
+            "requests_per_s": len(got) / wall, "p50_s": float(np.percentile(lat, 50)),
+            "p99_s": float(np.percentile(lat, 99)),
+            "batches": voice.batcher.stats["batches"] - batches0, "decodes": sum(decodes),
+            **per_submit_ms(spans),
+        }
+        n, pwall, busy = profiled_window(port, paths, WINDOW_ROUNDS)
+        out["profiled_window"] = {"requests": n, "wall_s": pwall, "device_busy_s": busy,
+                                  "idle_share": 1 - busy / pwall}
+        q = f"/stream?text={urllib.parse.quote(STREAM_TEXT)}&seed=4"
+        http_stream(port, q)
+        chunks, firsts, totals = timed_streams(port, q, STREAMS)
+        n_chunks = len(chunks[0])
+        out["stream"] = {
+            "chunks": n_chunks, "first_chunk_p50_s": float(np.percentile(firsts, 50)),
+            "first_chunk_p99_s": float(np.percentile(firsts, 99)),
+            "whole_p50_s": float(np.percentile(totals, 50)),
+            "wall_per_chunk_ms": float(np.percentile(totals, 50)) / n_chunks * 1e3,
+        }
+    finally:
+        stop_serving(server, thread, voice)
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def main(argv) -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if argv[:1] == ["--measure"] and len(argv) == 2:
+        return measure(argv[1])
+    if argv:
+        print("usage: chip_smoke.py [--measure DIR]", file=sys.stderr)
+        return 2
     sys.path.insert(0, str(ROOT))
     from piper_tpu_torch.ops.cuda import vocoder as V
+    from piper_tpu_torch.runtime.voice import tf32_off
+
+    tf32_off()  # float32 without TF32 everywhere, as every TorchVoice leaves it
 
     # 1. the card, versions, kernel build
     smi = subprocess.run(
@@ -805,8 +1167,9 @@ def main() -> int:
         cfg, params_np = make_voice(tmp)
         # 2. kernels against plain versions
         results = phase_kernels(cfg, params_np, peaks)
-        # 3. main path
+        # 3. main path, and the benchmark CLI on the same voice
         launches = phase_main_path(tmp, cfg, params_np, smi)
+        phase_benchmark(tmp, smi)
         # 4. serving path
         phase_serving(cfg, params_np, smi, peaks)
 
@@ -827,4 +1190,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

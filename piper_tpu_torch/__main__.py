@@ -60,6 +60,11 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--precision", choices=["parity", "fast"], default="fast")
     parser.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                         help="cuda (default) or cpu; never chosen for you")
+    parser.add_argument(
+        "--decode-grouping", "--decode_grouping",
+        choices=["bucketed", "uniform", "packed"], default=None,
+        help="decode planner (default: bucketed for the CLI, uniform for the HTTP server)",
+    )
     parser.add_argument("--seed", type=int, help="Deterministic synthesis seed")
     parser.add_argument("--batch", action="store_true",
                         help="With --output-dir: synthesise all stdin lines as one batch")
@@ -71,7 +76,8 @@ def build_parser() -> argparse.ArgumentParser:
 def load_voice(args) -> TorchVoice:
     """The voice the parsed arguments name (shared with the HTTP server)."""
     return TorchVoice.load(
-        args.model, args.config, precision=args.precision, device=args.device
+        args.model, args.config, precision=args.precision, device=args.device,
+        decode_grouping=args.decode_grouping or "bucketed",
     )
 
 

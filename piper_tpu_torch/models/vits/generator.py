@@ -267,6 +267,42 @@ def _nwc_stage_rows(p, i: int, x, lengths: Sequence[int], cfg: ModelConfig):
     return out
 
 
+def _conv_pre(p, x, g):
+    """conv_pre (+ the speaker's cond), (B, T, C_inter) -> (B, T, C)."""
+    x = L.conv(p["conv_pre"], x, padding=3)
+    if g is not None:
+        x = x + L.dense(p["cond"], g[:, None, :])
+    return x
+
+
+def _conv_pre_rows(p, x, g, lengths: Sequence[int]):
+    """_conv_pre one row at a time at its own valid length (zeros past
+    it), as _tconv_tm_rows and for its reason: on the x-low and high
+    presets cuDNN rounds a row of conv_pre differently in a batch."""
+    out = x.new_zeros(x.shape[:2] + (p["conv_pre"]["w"].shape[-1],))
+    for r, n in enumerate(lengths):
+        if n:
+            out[r, :n] = _conv_pre(p, x[r : r + 1, :n], None if g is None else g[r : r + 1])[0]
+    return out
+
+
+def _time_mask(lens: torch.Tensor, t: int, dtype) -> torch.Tensor:
+    """(B, t) 1 before each row's length, 0 after."""
+    return (torch.arange(t, device=lens.device)[None, :] < lens[:, None]).to(dtype)
+
+
+def _nwc_stage_masked(p, i: int, x, lens: torch.Tensor, cfg: ModelConfig):
+    """_nwc_stage_rows over the whole batch at its full length, masked by
+    the device lengths (frames in, samples out): the fixed-shape mode of
+    generator_tm_apply, as generator_apply masks."""
+    u, k = cfg.upsample_rates[i], cfg.upsample_kernel_sizes[i]
+    up = p["ups"][i]
+    y = tnn.leaky_relu(x, LRELU_SLOPE)
+    y = tnn.conv1d_transpose(y, up["w"], up["b"], stride=u, padding=(k - u) // 2)
+    mask = _time_mask(lens * u, y.shape[1], y.dtype)[..., None]
+    return _mrf_nwc(p["resblocks"][i], y * mask, mask, cfg)
+
+
 def generator_tm_apply(
     p: Params,
     tm: Params,
@@ -276,40 +312,58 @@ def generator_tm_apply(
     cfg: ModelConfig,
     g: Optional[torch.Tensor] = None,
     row_frames: Optional[Sequence[int]] = None,
+    fixed_shape: bool = False,
 ) -> torch.Tensor:
     """Time-major generator. x: (B, T_frames, C) pre-masked latent;
     frame_lengths: (B,) valid frames. Returns (B, T*u_total); samples
     past each row's length are not defined (compare valid samples).
-    The plain stages before the kernels run row by row (_nwc_stage_rows,
-    _tconv_tm_rows), so each row gives the bits it gives alone.
+    conv_pre and the plain stages before the kernels run row by row
+    (_conv_pre_rows, _nwc_stage_rows, _tconv_tm_rows), so each row gives
+    the bits it gives alone.
     `row_frames`: the same lengths on the host, when the caller has them
-    (saves reading frame_lengths back)."""
+    (saves reading frame_lengths back).
+
+    `fixed_shape`: the mode a CUDA graph captures (runtime/graphs.py).
+    conv_pre and the plain stages run over the whole (B, T) and are
+    masked by the device lengths, so no length is read back to the host
+    and every launch's shape follows x's alone. A row's valid samples are the
+    same function as row by row; on the card they may round differently
+    (cuBLAS and cuDNN pick algorithms by shape)."""
     ks = tuple(cfg.resblock_kernel_sizes)
     ds = tuple(tuple(d) for d in cfg.resblock_dilation_sizes)
     start = tm_start_stage(cfg)
     n_stages = len(cfg.upsample_rates)
     fuse_from = fused_suffix_start(cfg, start)
-    x = L.conv(p["conv_pre"], x, padding=3)
-    if g is not None:
-        x = x + L.dense(p["cond"], g[:, None, :])
     lens = frame_lengths.to(device=x.device, dtype=torch.int32)
+    if fixed_shape:
+        host_lens = None
+        x = _conv_pre(p, x, g)
+    else:
+        host_lens = list(row_frames) if row_frames is not None else lens.tolist()
+        x = _conv_pre_rows(p, x, g, host_lens)
     mask = (
         torch.arange(x.shape[1], device=x.device)[None, :, None] < lens[:, None, None]
     ).to(x.dtype)
     x = x * mask
-    host_lens = list(row_frames) if row_frames is not None else lens.tolist()
     for i in range(start):
         # wide early stages whose MRF tile does not fit shared memory
-        x = _nwc_stage_rows(p, i, x, host_lens, cfg)
+        if fixed_shape:
+            x = _nwc_stage_masked(p, i, x, lens, cfg)
+        else:
+            x = _nwc_stage_rows(p, i, x, host_lens, cfg)
+            host_lens = [n * cfg.upsample_rates[i] for n in host_lens]
         lens = lens * cfg.upsample_rates[i]
-        host_lens = [n * cfg.upsample_rates[i] for n in host_lens]
     x = x.transpose(1, 2).contiguous()  # (B, C, T)
     for i in range(start, fuse_from):
         u, k = cfg.upsample_rates[i], cfg.upsample_kernel_sizes[i]
         q0, used, _ = _tm_phase_plan(k, u)
         x = tnn.leaky_relu(x, LRELU_SLOPE)
-        x = _tconv_tm_rows(x, tm["ups"][i], q0, used, tm["ups_b"][i], host_lens)
-        host_lens = [n * u for n in host_lens]
+        if fixed_shape:
+            x = _tconv_tm(x, tm["ups"][i], q0, used, tm["ups_b"][i])
+            x = x * _time_mask(lens * u, x.shape[-1], x.dtype)[:, None, :]
+        else:
+            x = _tconv_tm_rows(x, tm["ups"][i], q0, used, tm["ups_b"][i], host_lens)
+            host_lens = [n * u for n in host_lens]
         lens = lens * u
         pw, pb = tm["mrf"][i]
         x = V.mrf_fused(

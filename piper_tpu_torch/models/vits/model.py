@@ -114,6 +114,43 @@ def synthesizer_latents(
     return z_p * y_mask, y_mask
 
 
+def synthesizer_flow(
+    params: Params,
+    z_p: torch.Tensor,
+    y_mask: torch.Tensor,
+    *,
+    cfg: ModelConfig,
+    g: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Flow reverse (models.py:719): z_p -> z, masked. No host read, so
+    a CUDA graph can hold it (runtime/voice.py)."""
+    z = F.flow_apply(params["flow"], z_p, y_mask, cfg=cfg, g=g, reverse=True)
+    return z * y_mask
+
+
+def synthesizer_generate(
+    params: Params,
+    z: torch.Tensor,
+    y_mask: torch.Tensor,
+    *,
+    cfg: ModelConfig,
+    g: Optional[torch.Tensor] = None,
+    frames: Optional[Sequence[int]] = None,
+    fixed_shape: bool = False,
+) -> torch.Tensor:
+    """Time-major HiFiGAN (models.py:720) on the masked flow output z."""
+    # counted, not summed in the mask's dtype: a bfloat16 sum rounds
+    # lengths past 256 frames (259 -> 260)
+    frame_lengths = (y_mask[..., 0] > 0).sum(dim=1).to(torch.int32)
+    tm = params.get("dec_tm")
+    if tm is None:
+        tm = G.prepare_tm(params["dec"], cfg, z.dtype)
+    return G.generator_tm_apply(
+        params["dec"], tm, z, frame_lengths, cfg=cfg, g=g, row_frames=frames,
+        fixed_shape=fixed_shape,
+    )
+
+
 def synthesizer_vocode(
     params: Params,
     z_p: torch.Tensor,
@@ -123,24 +160,20 @@ def synthesizer_vocode(
     sid: Optional[torch.Tensor] = None,
     g: Optional[torch.Tensor] = None,
     frames: Optional[Sequence[int]] = None,
+    fixed_shape: bool = False,
 ) -> torch.Tensor:
     """Flow reverse + time-major HiFiGAN (models.py:719-720): z_p ->
     waveform (B, T_frames * upsample). Samples past each row's length
     are not defined. `params["dec_tm"]` holds generator.prepare_tm's
     tables (TorchVoice attaches them). `frames`: each row's valid frames
-    on the host, when known (generator_tm_apply's row_frames)."""
+    on the host, when known (generator_tm_apply's row_frames).
+    `fixed_shape`: generator_tm_apply's graph-capturable mode."""
     check_supported(cfg)
     if g is None:
         g = speaker_embedding(params, cfg, sid)
-    z = F.flow_apply(params["flow"], z_p, y_mask, cfg=cfg, g=g, reverse=True)
-    # counted, not summed in the mask's dtype: a bfloat16 sum rounds
-    # lengths past 256 frames (259 -> 260)
-    frame_lengths = (y_mask[..., 0] > 0).sum(dim=1).to(torch.int32)
-    tm = params.get("dec_tm")
-    if tm is None:
-        tm = G.prepare_tm(params["dec"], cfg, z.dtype)
-    return G.generator_tm_apply(
-        params["dec"], tm, z * y_mask, frame_lengths, cfg=cfg, g=g, row_frames=frames
+    z = synthesizer_flow(params, z_p, y_mask, cfg=cfg, g=g)
+    return synthesizer_generate(
+        params, z, y_mask, cfg=cfg, g=g, frames=frames, fixed_shape=fixed_shape
     )
 
 

@@ -23,6 +23,9 @@ Each wrapper counts its kernel launches in a plain integer attribute
 (`mrf_fused.launches`, `fused_upsample_mrf.launches`), bumped under a
 lock (`count_launch`) so the counts stay exact when several threads
 launch (a server's request handlers, its batcher, a background warm-up).
+A CUDA graph's capture launches nothing: inside recording_launches the
+wrappers record their launches for the graph, and runtime/graphs.py
+adds them to the counts at every replay.
 
 The kernels choose their own time tiles against the 227 KB of shared
 memory a block may use, so the output of fused_upsample_mrf is exactly V
@@ -31,6 +34,8 @@ frames wide (the TPU kernel pads V to its tile).
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -40,7 +45,7 @@ import tempfile
 import threading
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -436,13 +441,34 @@ def _n_sm(device) -> int:
 
 
 _count_lock = threading.Lock()
+_recording = threading.local()
 
 
 def count_launch(wrapper) -> None:
     """Add one to `wrapper.launches`. A read-modify-write of an attribute
-    is not atomic across threads, so it runs under a lock."""
+    is not atomic across threads, so it runs under a lock. While this
+    thread captures a CUDA graph (recording_launches), the launch is
+    recorded for the graph instead: a capture runs nothing."""
+    recorder = getattr(_recording, "counter", None)
+    if recorder is not None:
+        recorder[wrapper] += 1
+        return
     with _count_lock:
         wrapper.launches += 1
+
+
+@contextlib.contextmanager
+def recording_launches() -> Iterator[collections.Counter]:
+    """Within it, this thread's kernel launches go into the yielded
+    Counter (wrapper -> launches) instead of the wrappers' counts:
+    runtime/graphs.py captures a graph inside it and adds the recorded
+    launches to the counts at every replay."""
+    recorder: collections.Counter = collections.Counter()
+    _recording.counter = recorder
+    try:
+        yield recorder
+    finally:
+        _recording.counter = None
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,14 @@
-"""Length bucketing (a copy of piper_tpu/runtime/batching.py).
+"""Length bucketing (a copy of piper_tpu/runtime/batching.py) and the
+decode planner.
 
 Padding phoneme rows to a small geometric ladder of lengths keeps the
 set of batch shapes small while keeping padding waste low. The
 reference has no batching at all (batch=1 serial loop, piper.cpp:484).
+
+plan_decode_groups and round_rows are TpuVoice._plan_decode_groups and
+TpuVoice._round_rows (piper_tpu/runtime/voice.py:616-640) as functions:
+how one encode group's rows split into decodes, each at one frame
+bucket.
 """
 
 from __future__ import annotations
@@ -104,3 +110,35 @@ def plan_packed_groups(
         (pick_bucket(int(lengths[order[i]]), buckets), order[i:j])
         for i, j in reversed(segs)
     ]
+
+
+DECODE_GROUPINGS = ("bucketed", "uniform", "packed")
+
+
+def round_rows(n: int) -> int:
+    """A group's row count rounded up to a power of two: the row counts
+    a fixed-shape step is built for (the JAX package's jit shapes, the
+    port's CUDA graphs)."""
+    p = 1
+    while p < n:
+        p <<= 1
+    return p
+
+
+def plan_decode_groups(
+    frame_counts: Sequence[int],
+    grouping: str,
+    frame_buckets: Sequence[int],
+) -> List[Tuple[int, List[int]]]:
+    """[(frame_bucket, row_positions)] for one encode group's rows:
+    "uniform" one decode at the bucket of the longest row; "bucketed"
+    one decode per frame bucket; "packed" plan_packed_groups' partition.
+    Every count must fit the ladder (pick_bucket raises past it)."""
+    counts = [int(f) for f in frame_counts]
+    if grouping == "uniform":
+        return [(pick_bucket(max(counts), frame_buckets), list(range(len(counts))))]
+    if grouping == "packed":
+        return plan_packed_groups(counts, frame_buckets, round_rows=round_rows)
+    if grouping == "bucketed":
+        return group_by_bucket(counts, frame_buckets)
+    raise ValueError(f"decode_grouping: {grouping!r}")

@@ -9,14 +9,15 @@ samples (pad * upsample_factor) are trimmed, so the chunks concatenate
 with small seams. The final chunk trims only what was actually padded
 (the reference trims a stale pad there and drops tail samples).
 
-Differences from the JAX package:
-- PyTorch has no static shapes, so each chunk is decoded at its own
-  length (a chunk's valid samples do not depend on the length it is
-  decoded at);
-- the latents of any frame count come from one call, with the batch
-  path's own noise (utterance_seed, duration_noise, frame_noise), so
-  one branch serves every length and a seeded utterance gets the same
-  durations streamed and batched.
+As in the JAX package, every chunk is decoded at one fixed window of
+chunk_frames + 2 * pad_frames frames under a length mask
+(piper_tpu/runtime/streaming.py:66-90), so it runs as one CUDA graph
+replay (runtime/graphs.py): the flows, the generator's plain stages in
+their fixed-shape mode and both kernels, about 250 launches eagerly.
+The latents of any frame count come from one call, with the batch
+path's own noise (utterance_seed, duration_noise, frame_noise), so one
+branch serves every length and a seeded utterance gets the same
+durations streamed and batched.
 """
 
 from __future__ import annotations
@@ -36,7 +37,7 @@ DEFAULT_PAD_FRAMES = 10
 
 
 class StreamingDecoder:
-    """Chunked vocoder around a TorchVoice."""
+    """Fixed-window chunked vocoder around a TorchVoice."""
 
     def __init__(
         self,
@@ -50,13 +51,24 @@ class StreamingDecoder:
         self.window = chunk_frames + 2 * pad_frames
         self.upsample = voice.model_cfg.upsample_factor
 
-    def _vocode(self, seg: torch.Tensor, sid: Optional[torch.Tensor]) -> np.ndarray:
-        """Flow reverse + generator of one (1, T, C) segment, all valid."""
+    def _chunk(self, z: torch.Tensor, n: torch.Tensor, sid: Optional[torch.Tensor]):
+        """Flow reverse + generator of one (1, window, C) window whose
+        first n frames are valid: the function the chunk graph holds."""
         voice = self.voice
-        with torch.inference_mode(), voice._precision():
-            mask = torch.ones((1, seg.shape[1], 1), dtype=seg.dtype, device=seg.device)
-            audio = M.synthesizer_vocode(voice.params, seg, mask, cfg=voice.model_cfg, sid=sid)
-            return audio[0].float().cpu().numpy()
+        mask = (torch.arange(self.window, device=z.device)[None, :, None] < n).to(z.dtype)
+        audio = M.synthesizer_vocode(
+            voice.params, z * mask, mask, cfg=voice.model_cfg, sid=sid, fixed_shape=True
+        )
+        return (audio,)
+
+    def _vocode(self, z: torch.Tensor, n: int, lo: int, hi: int, sid) -> np.ndarray:
+        """Samples [lo, hi) of one window (z: (1, window, C), n valid
+        frames), through the voice's chunk graph."""
+        voice = self.voice
+        key = ("chunk", self.window, voice.dtype, sid is not None)
+        with torch.inference_mode():
+            (audio,) = voice.graphs.run(key, self._chunk, (z, torch.tensor([n]), sid))
+            return audio[0, lo:hi].float().cpu().numpy()
 
     def stream(
         self,
@@ -68,19 +80,23 @@ class StreamingDecoder:
 
         z_p: (1, T, C) latent on the voice's device, T >= n_frames;
         n_frames: valid frame count."""
-        chunk, pad, u = self.chunk_frames, self.pad_frames, self.upsample
+        chunk, pad, u, window = self.chunk_frames, self.pad_frames, self.upsample, self.window
         if n_frames <= 0:
             return
-        if n_frames <= self.window:
+        with torch.inference_mode():
+            # every window is a view of one zero-padded copy of the latent
+            z = torch.nn.functional.pad(z_p[:, :n_frames], (0, 0, 0, window))
+        if n_frames <= window:
             # too short to stream (reference: chunk() short-circuit)
-            yield self._vocode(z_p[:, :n_frames], sid)[: n_frames * u]
+            yield self._vocode(z[:, :window], n_frames, 0, n_frames * u, sid)
             return
         for start in range(0, n_frames, chunk):
             end = min(start + chunk, n_frames)
             pad_l = min(pad, start)
             pad_r = min(pad, n_frames - end)
-            audio = self._vocode(z_p[:, start - pad_l : end + pad_r], sid)
-            yield audio[pad_l * u : (pad_l + end - start) * u]
+            lo = start - pad_l
+            seg_len = end + pad_r - lo
+            yield self._vocode(z[:, lo : lo + window], seg_len, pad_l * u, (seg_len - pad_r) * u, sid)
 
 
 def synthesize_stream_chunks(
@@ -97,8 +113,8 @@ def synthesize_stream_chunks(
     key = utterance_seed(voice.resolve_seeds([syn.seed])[0], ids)
     bucket = batching.pick_bucket(len(ids), voice.phoneme_buckets)
     sid = voice._speaker(syn, 1)
-    with torch.inference_mode(), voice._precision():
-        enc, frames = voice._encode([ids], [key], bucket, syn, sid)
-        n_frames = frames[0]
+    with torch.inference_mode():
+        enc, frames = voice._encode([ids], [key], bucket, syn)
+        n_frames = voice._read_frames([frames])[0][0]
         z_p, _ = voice._latents(enc, [key], max(n_frames, 1), syn)
     yield from StreamingDecoder(voice).stream(z_p, n_frames, sid)

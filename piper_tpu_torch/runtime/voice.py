@@ -4,11 +4,19 @@ Counterpart of piper_tpu/runtime/voice.py (TpuVoice), kept deliberately
 simpler: no speculative packing, dispatch fusion, estimator cache,
 mu-law wire or long-form windows. A batch of id sequences runs as
 
-  1. rows grouped by phoneme bucket (runtime/batching.py), padded;
-  2. one encode per bucket group (text encoder + duration predictor);
-  3. one decode per group at the group's largest frame count: prior
-     expansion, frame noise, reverse flow, time-major HiFiGAN through the
-     CUDA kernels (ops/cuda/vocoder.py);
+  1. Phase A: rows grouped by phoneme bucket (runtime/batching.py) and
+     one encode per bucket (text encoder + duration predictor), each one
+     CUDA graph replay at (phoneme bucket, ENCODE_ROWS rows), the ids
+     uploaded in the narrowest integer type that holds num_symbols;
+  2. Phase B: every bucket's frame counts read to the host in one copy
+     (piper_tpu/runtime/voice.py:1046-1101);
+  3. each bucket's rows planned into decodes by `decode_grouping`
+     (batching.plan_decode_groups: bucketed, uniform or packed), each
+     decode at its frame bucket: prior expansion and frame noise
+     eagerly, the reverse flow as one graph replay per (frame bucket,
+     power-of-two rows), the time-major HiFiGAN through the CUDA kernels
+     (ops/cuda/vocoder.py) eagerly at the decode's longest row, since
+     its row stages take each row's length on the host;
   4. conversion to int16 on the device (fast) or float32 (parity), and
      one copy of every row's valid samples to the host.
 
@@ -17,12 +25,15 @@ work and starts the copy to the host (pinned memory, non_blocking, an
 event after it), collect() waits on that event and returns the
 waveforms, so a server's batcher can collect on another thread while
 its next batch is submitted. With `batcher` set (server/batcher.py),
-synthesize_batch and synthesize_stream_raw go through it.
+synthesize_batch and synthesize_stream_raw go through it. With `timer`
+set (runtime/profiling.StageTimer), submit() times its phases.
 
 Threads: a server calls one voice from many threads. The generator of
-unseeded requests' seeds is guarded by a lock, and parity precision's
-TF32 flags (process-wide) are switched under one process-wide lock
-(_fp32_exact), so neither depends on another thread's timing.
+unseeded requests' seeds is guarded by a lock, and the graphs by theirs
+(runtime/graphs.py). TF32 is switched off once, when a voice is built
+(tf32_off): fast precision computes its float32 parts without it at no
+cost (PERF.md), so both precisions run under the same process-wide
+flags and no call switches them.
 
 Noise: every utterance draws its own noise from (seed, crc32(ids)), as
 TpuVoice._content_hashes does (voice.py:923): duration noise for its own
@@ -31,7 +42,10 @@ its index. An utterance's audio therefore depends neither on the batch
 it rides in nor on the frame count it is decoded at (the two properties
 of voice.py:262-331). Noise is drawn on the host with torch's CPU
 generator and copied to the device, so the CPU and the card see the same
-numbers.
+numbers. A row's bits are its solo bits in either precision: the
+encodes run at one row count (ENCODE_ROWS), the flow keeps a row's bits
+at any shape, and conv_pre and the generator's plain stages run row by
+row (PERF.md).
 """
 
 from __future__ import annotations
@@ -56,9 +70,15 @@ from ..text.phonemize import phonemize
 from ..weights.bridge import params_from_jax
 from ..weights.native import load_native
 from . import batching
+from .graphs import GraphCache
 from .wav import audio_float_to_int16, int16_to_float
 
 NOISE_BLOCK = 64  # frames per frame-noise block
+# Rows of every encode: a phoneme bucket's rows run in slices of this
+# many, padded with copies of the slice's first row, so a row's bits
+# never depend on how many rows share its bucket (cuBLAS and cuDNN pick
+# their algorithms by shape; PERF.md). One encode graph per bucket.
+ENCODE_ROWS = 16
 
 
 @dataclasses.dataclass
@@ -87,27 +107,14 @@ def resolve_device(device: Union[None, str, torch.device]) -> torch.device:
     return dev
 
 
-# The TF32 switches are process-wide. Every parity call saves, clears and
-# restores them under this lock: two calls that interleaved would restore
-# each other's state, switching TF32 back on under a computation still
-# running or leaving it off for the process. Reentrant, so a parity call
-# may nest another.
-_FP32_LOCK = threading.RLock()
-
-
-@contextlib.contextmanager
-def _fp32_exact():
-    """Parity precision: no TF32 in matmuls or cuDNN convolutions. Holds
-    _FP32_LOCK for its whole extent, so parity calls run one at a time
-    (a fast call running beside one sees TF32 off for that time)."""
-    with _FP32_LOCK:
-        saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-        try:
-            yield
-        finally:
-            torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+def tf32_off() -> None:
+    """Compute float32 matmuls and cuDNN convolutions without TF32, for
+    the whole process. Parity precision needs it; fast precision loses
+    nothing by it (its float32 parts are the duration predictor and the
+    splines; PERF.md). The CUDA graphs bake the setting in at capture,
+    so it is set before any capture and never switched back."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
 
 def _split_phonemes(phones: List[str], max_ids: int, id_cost) -> List[List[str]]:
@@ -175,6 +182,7 @@ class TorchVoice:
         precision: str = "fast",
         device: Union[None, str, torch.device] = None,
         seed: Optional[int] = None,
+        decode_grouping: str = "bucketed",
     ):
         """`params`: the voice's parameter tree in the JAX package's
         layouts (numpy leaves, as weights/native.load_native returns it).
@@ -182,11 +190,26 @@ class TorchVoice:
         `precision`: "parity" computes in float32 with TF32 off; "fast"
         computes in bfloat16, with the duration and spline math in
         float32 and float32 accumulation inside the kernels.
-        `device`: None means CUDA (raises when there is none)."""
+        `device`: None means CUDA (raises when there is none).
+
+        `decode_grouping` (TpuVoice's, piper_tpu/runtime/voice.py:150-167):
+          "bucketed" (default): each phoneme bucket's rows decode in one
+              group per frame bucket;
+          "uniform": each phoneme bucket's rows decode in one group at
+              the frame bucket of its longest row (the HTTP server's
+              default: fewer decodes per batch);
+          "packed": batching.plan_packed_groups' partition of the
+              length-sorted rows.
+        Every grouping plans the rows of one encode group, so a batch
+        runs at least one decode per phoneme bucket. A row's audio is
+        the same under any of them."""
         if precision not in ("parity", "fast"):
             raise ValueError(f"precision: {precision!r}")
+        if decode_grouping not in batching.DECODE_GROUPINGS:
+            raise ValueError(f"decode_grouping: {decode_grouping!r}")
         M.check_supported(model_cfg)
         self.device = resolve_device(device)
+        tf32_off()
         self.config = config
         self.model_cfg = model_cfg
         self.precision = precision
@@ -194,9 +217,20 @@ class TorchVoice:
         self.params = params_from_jax(params, model_cfg, self.device, self.dtype)
         self.params["dec_tm"] = G.prepare_tm(self.params["dec"], model_cfg, self.dtype)
         self.phoneme_buckets = batching.DEFAULT_PHONEME_BUCKETS
+        self.frame_buckets = batching.DEFAULT_FRAME_BUCKETS
+        self.decode_grouping = decode_grouping
+        # Narrowest host->device type of the phoneme ids (TpuVoice's
+        # _ids_wire_dtype, voice.py:243): embedding indices are
+        # non-negative, so 8 unsigned bits cover a 256-symbol table.
+        ns = model_cfg.num_symbols
+        self._ids_wire_dtype = (
+            torch.uint8 if ns <= 256 else torch.int16 if ns < 32768 else torch.int32
+        )
+        self.graphs = GraphCache(self.device)
         self._rng = np.random.default_rng(seed)  # seeds of unseeded rows
         self._rng_lock = threading.Lock()
         self.batcher = None  # server/batcher.CoalescingBatcher, when serving
+        self.timer = None  # runtime/profiling.StageTimer: spans of submit()
 
     # ------------------------------------------------------------------
     # Loading
@@ -259,8 +293,24 @@ class TorchVoice:
     # Synthesis
     # ------------------------------------------------------------------
 
-    def _precision(self):
-        return _fp32_exact() if self.precision == "parity" else contextlib.nullcontext()
+    def _span(self, name: str):
+        return self.timer.span(name) if self.timer is not None else contextlib.nullcontext()
+
+    def _plan_decode_groups(self, frame_counts: Sequence[int]) -> List[Tuple[int, List[int]]]:
+        """[(frame_bucket, row_positions)] for one encode group's rows
+        (decode_grouping). A row past the frame-bucket ladder decodes
+        alone at its own frame count: the port decodes any frame count
+        in one call, where TpuVoice decodes such a row in windows."""
+        top = self.frame_buckets[-1]
+        fit = [j for j, f in enumerate(frame_counts) if f <= top]
+        plan = [
+            (fb, [fit[j] for j in rows])
+            for fb, rows in batching.plan_decode_groups(
+                [frame_counts[j] for j in fit], self.decode_grouping,
+                self.frame_buckets,
+            )
+        ] if fit else []
+        return plan + [(int(f), [j]) for j, f in enumerate(frame_counts) if f > top]
 
     def resolve_seeds(self, seeds: Sequence[Optional[int]]) -> List[int]:
         """Each row's seed mod 2^32; a None row draws one from the voice's
@@ -291,31 +341,36 @@ class TorchVoice:
     ) -> dict:
         """Enqueue a batch's device work and the copy of its samples to
         the host; returns a handle for collect(). The only wait is for the
-        frame counts (one small copy per phoneme bucket).
+        frame counts: one copy for the whole batch (Phase B).
 
         `row_seeds` gives each row its own seed (a None row draws one),
         overriding syn.seed: the batcher coalesces differently seeded
         requests with it, and a row's audio equals a solo seeded submit's.
         """
-        syn = syn or SynthesisConfig()
+        with self._span("submit"):
+            return self._submit(ids_list, syn or SynthesisConfig(), row_seeds)
+
+    def _submit(self, ids_list, syn: SynthesisConfig, row_seeds) -> dict:
         t0 = time.perf_counter()
         if row_seeds is None:
             row_seeds = [syn.seed] * len(ids_list)
         seeds = self.resolve_seeds(row_seeds)
         keys = [utterance_seed(s, ids) for s, ids in zip(seeds, ids_list)]
         event = None
-        with torch.inference_mode(), self._precision():
-            flat, rows = self._synthesize(ids_list, keys, syn)
-            if self.device.type == "cuda":
-                # into pinned memory without waiting; collect() waits on
-                # the event, from whichever thread it runs on
-                host = torch.empty(flat.shape, dtype=flat.dtype, pin_memory=True)
-                host.copy_(flat, non_blocking=True)
-                event = torch.cuda.Event()
-                event.record(torch.cuda.current_stream(self.device))
-            else:
-                host = flat
-        return {"host": host, "event": event, "rows": rows, "n": len(ids_list), "t0": t0}
+        with torch.inference_mode():
+            flat, rows, decodes = self._synthesize(ids_list, keys, syn)
+            with self._span("copy"):
+                if self.device.type == "cuda":
+                    # into pinned memory without waiting; collect() waits on
+                    # the event, from whichever thread it runs on
+                    host = torch.empty(flat.shape, dtype=flat.dtype, pin_memory=True)
+                    host.copy_(flat, non_blocking=True)
+                    event = torch.cuda.Event()
+                    event.record(torch.cuda.current_stream(self.device))
+                else:
+                    host = flat
+        return {"host": host, "event": event, "rows": rows, "n": len(ids_list), "t0": t0,
+                "decodes": decodes}
 
     def collect(
         self, handle: dict, *, stats: Optional[SynthesisStats] = None
@@ -349,68 +404,169 @@ class TorchVoice:
         spk = syn.speaker_id if syn.speaker_id is not None else 0
         return torch.full((b,), spk, dtype=torch.long, device=self.device)
 
-    def _encode(self, rows_ids, keys, bucket: int, syn: SynthesisConfig, sid):
-        """Encode rows padded to `bucket`, each with its own duration
-        noise; returns the EncodeResult and the rows' frame counts (the
-        one wait of the path)."""
-        b = len(rows_ids)
-        ids_arr = np.zeros((b, bucket), np.int64)
-        dur_noise = torch.zeros((b, bucket, 2))
-        for row, (ids, key) in enumerate(zip(rows_ids, keys)):
-            ids_arr[row, : len(ids)] = ids
-            dur_noise[row, : len(ids)] = duration_noise(key, len(ids))
-        _, length_scale, noise_w = self._scales(syn)
-        dev = self.device
-        enc = M.synthesizer_encode(
-            self.params, torch.from_numpy(ids_arr).to(dev),
-            torch.tensor([len(ids) for ids in rows_ids], device=dev), cfg=self.model_cfg,
-            noise_w_scale=noise_w, length_scale=length_scale,
-            dur_noise=dur_noise.to(dev), sid=sid, dtype=self.dtype,
-        )
-        return enc, enc.durations.sum(dim=-1).cpu().tolist()
+    def _host_zeros(self, shape, dtype=torch.float32) -> torch.Tensor:
+        """A zeroed host tensor to fill and copy to the device without
+        waiting: on CUDA in pinned memory (the caching host allocator
+        keeps the block until the copy has run)."""
+        return torch.zeros(shape, dtype=dtype, pin_memory=self.device.type == "cuda")
 
-    def _latents(self, enc, keys, num_frames: int, syn: SynthesisConfig):
-        """z_p and y_mask at num_frames, each row's frame noise from its key."""
-        fnoise = torch.stack([
-            frame_noise(key, num_frames, self.model_cfg.inter_channels) for key in keys
-        ])
-        return M.synthesizer_latents(
-            self.params, enc, num_frames, cfg=self.model_cfg,
-            noise_scale=self._scales(syn)[0], frame_noise=fnoise.to(self.device),
+    def _encode_step(self, ids, lengths, dur_noise, scales, sid):
+        """The encode graph's function: text encoder + duration predictor
+        over ENCODE_ROWS padded rows, and each row's frame count."""
+        enc = M.synthesizer_encode(
+            self.params, ids, lengths, cfg=self.model_cfg, noise_w_scale=scales[0],
+            length_scale=scales[1], dur_noise=dur_noise, sid=sid, dtype=self.dtype,
         )
+        return (*enc, enc.durations.sum(dim=-1))
+
+    def _flow_step(self, z_p, y_mask, sid):
+        """The flow graph's function: reverse flow over a decode's rows at
+        its frame bucket (the generator after it runs eagerly: its row
+        stages take host lengths)."""
+        g = M.speaker_embedding(self.params, self.model_cfg, sid)
+        return (M.synthesizer_flow(self.params, z_p, y_mask, cfg=self.model_cfg, g=g),)
+
+    def _flow(self, z_p, y_mask, sid) -> torch.Tensor:
+        """A decode's reverse flow: a graph replay at (frame bucket, rows)
+        on the frame-bucket ladder, eager past it (a row decoded alone at
+        its own frame count)."""
+        if z_p.shape[1] > self.frame_buckets[-1]:
+            return self._flow_step(z_p, y_mask, sid)[0]
+        key = ("flow", z_p.shape[1], z_p.shape[0], self.dtype, sid is not None)
+        return self.graphs.run(key, self._flow_step, (z_p, y_mask, sid))[0]
+
+    def _encode(self, rows_ids, keys, bucket: int, syn: SynthesisConfig):
+        """Encode rows padded to `bucket`, each with its own duration
+        noise, as graph replays at (bucket, ENCODE_ROWS): the rows in
+        slices of ENCODE_ROWS, each padded with copies of its first row,
+        the pad rows dropped. Returns the EncodeResult of the real rows
+        and their frame counts, on the device (read them with
+        _read_frames)."""
+        _, length_scale, noise_w = self._scales(syn)
+        with self._span("noise"):
+            noises = [duration_noise(key, len(ids)) for ids, key in zip(rows_ids, keys)]
+        outs = []
+        for lo in range(0, len(rows_ids), ENCODE_ROWS):
+            part = list(range(lo, min(lo + ENCODE_ROWS, len(rows_ids))))
+            order = part + part[:1] * (ENCODE_ROWS - len(part))
+            with self._span("upload"):
+                ids_arr = self._host_zeros((ENCODE_ROWS, bucket), self._ids_wire_dtype)
+                lengths = self._host_zeros((ENCODE_ROWS,), torch.int32)
+                dur_noise = self._host_zeros((ENCODE_ROWS, bucket, 2))
+                for row, j in enumerate(order):
+                    n = len(rows_ids[j])
+                    ids_arr[row, :n] = torch.as_tensor(rows_ids[j], dtype=self._ids_wire_dtype)
+                    lengths[row] = n
+                    dur_noise[row, :n] = noises[j]
+                scales = self._host_zeros((2,))
+                scales[0], scales[1] = noise_w, length_scale
+                sid = None
+                if self.model_cfg.num_speakers > 1:
+                    sid = self._host_zeros((ENCODE_ROWS,), torch.long)
+                    sid[:] = syn.speaker_id if syn.speaker_id is not None else 0
+            with self._span("encode"):
+                key = ("encode", bucket, ENCODE_ROWS, self.dtype, sid is not None)
+                inputs = (ids_arr, lengths, dur_noise, scales, sid)
+                outs.append([t[: len(part)] for t in self.graphs.run(key, self._encode_step, inputs)])
+        if len(outs) > 1:
+            outs = [[torch.cat(ts) for ts in zip(*outs)]]
+        *enc, frames = outs[0]
+        return M.EncodeResult(*enc), frames
+
+    def _read_frames(self, frames: Sequence[torch.Tensor]) -> List[List[int]]:
+        """Every encode group's frame counts to the host in one copy (the
+        one wait of submit)."""
+        if not frames:
+            return []
+        with self._span("frames_wait"):
+            flat = torch.cat(list(frames)).cpu().tolist()
+        out, pos = [], 0
+        for f in frames:
+            out.append(flat[pos : pos + f.shape[0]])
+            pos += f.shape[0]
+        return out
+
+    def _latents(self, enc, keys, num_frames: int, syn: SynthesisConfig, frames=None):
+        """z_p and y_mask at num_frames, each row's frame noise from its
+        key (drawn as far as the row's own frame count when `frames` is
+        given: past it the noise is masked out). Rows of `enc` past the
+        keys (a graph's pad rows) get no noise."""
+        c = self.model_cfg.inter_channels
+        with self._span("noise"):
+            # rows of enc past len(keys) pad a graph's rows: no noise
+            fnoise = self._host_zeros((enc.m_p.shape[0], num_frames, c))
+            for row, key in enumerate(keys):
+                n = num_frames if frames is None else min(frames[row], num_frames)
+                fnoise[row, :n] = frame_noise(key, n, c)
+        with self._span("upload"):
+            fnoise = fnoise.to(self.device, non_blocking=True)
+        with self._span("decode"):
+            return M.synthesizer_latents(
+                self.params, enc, num_frames, cfg=self.model_cfg,
+                noise_scale=self._scales(syn)[0], frame_noise=fnoise,
+            )
 
     def _synthesize(
         self, ids_list, keys, syn: SynthesisConfig
-    ) -> Tuple[torch.Tensor, List[Tuple[int, int, int]]]:
+    ) -> Tuple[torch.Tensor, List[Tuple[int, int, int]], int]:
         """Device part of submit: returns one flat tensor of every row's
-        valid samples and (index, start, n) per row."""
+        valid samples, (index, start, n) per row, and the decodes run."""
         u = self.model_cfg.upsample_factor
-        pieces: List[torch.Tensor] = []
-        rows: List[Tuple[int, int, int]] = []
-        pos = 0
+        # Phase A: every phoneme bucket's encode, no wait
+        groups = []
         for bucket, indices in batching.group_by_bucket(
             [len(ids) for ids in ids_list], self.phoneme_buckets
         ):
             rkeys = [keys[i] for i in indices]
-            sid = self._speaker(syn, len(indices))
-            enc, frames = self._encode([ids_list[i] for i in indices], rkeys, bucket, syn, sid)
-            z_p, y_mask = self._latents(enc, rkeys, max(max(frames), 1), syn)
-            audio = M.synthesizer_vocode(
-                self.params, z_p, y_mask, cfg=self.model_cfg, sid=sid, frames=frames
-            )
-            if self.precision == "fast":
-                # device-side int16 (voice.py:379-387): tanh output is in [-1, 1]
-                audio = torch.round(audio.float().clamp(-1.0, 1.0) * 32767.0).to(torch.int16)
-            else:
-                audio = audio.float()
-            for row, idx in enumerate(indices):
-                n = frames[row] * u
-                pieces.append(audio[row, :n])
-                rows.append((idx, pos, n))
-                pos += n
+            enc, frames = self._encode([ids_list[i] for i in indices], rkeys, bucket, syn)
+            groups.append((indices, rkeys, enc, frames))
+        # Phase B: all frame counts in one copy
+        counts = self._read_frames([g[3] for g in groups])
+        pieces: List[torch.Tensor] = []
+        rows: List[Tuple[int, int, int]] = []
+        pos = decodes = 0
+        for (indices, rkeys, enc, _), frames in zip(groups, counts):
+            for fbucket, members in self._plan_decode_groups(frames):
+                n = len(members)
+                # a decode on the ladder runs its flow as a graph at
+                # round_rows(n) rows: pad rows repeat the first row
+                graph = fbucket <= self.frame_buckets[-1]
+                padded = members + members[:1] * (batching.round_rows(n) - n if graph else 0)
+                if padded != list(range(len(indices))):
+                    sel = torch.tensor(padded, pin_memory=self.device.type == "cuda")
+                    sel = sel.to(self.device, non_blocking=True)
+                    genc = M.EncodeResult(*(t.index_select(0, sel) for t in enc))
+                else:
+                    genc = enc
+                gframes = [frames[j] for j in members]
+                z_p, y_mask = self._latents(genc, [rkeys[j] for j in members], fbucket, syn,
+                                            gframes)
+                with self._span("decode"):
+                    sid = self._speaker(syn, len(padded))
+                    z = self._flow(z_p, y_mask, sid)
+                    g = M.speaker_embedding(self.params, self.model_cfg,
+                                            None if sid is None else sid[:n])
+                    # the eager generator runs at the longest row, not at
+                    # the frame bucket: its kernels' work follows the width
+                    t = max(max(gframes), 1)
+                    audio = M.synthesizer_generate(
+                        self.params, z[:n, :t], y_mask[:n, :t], cfg=self.model_cfg, g=g,
+                        frames=gframes,
+                    )
+                    if self.precision == "fast":
+                        # device-side int16 (voice.py:379-387): tanh output is in [-1, 1]
+                        audio = torch.round(audio.float().clamp(-1.0, 1.0) * 32767.0).to(torch.int16)
+                    else:
+                        audio = audio.float()
+                decodes += 1
+                for row, j in enumerate(members):
+                    n_samples = gframes[row] * u
+                    pieces.append(audio[row, :n_samples])
+                    rows.append((indices[j], pos, n_samples))
+                    pos += n_samples
         if not pieces:
-            return torch.zeros(0, device=self.device), rows
-        return torch.cat(pieces), rows
+            return torch.zeros(0, device=self.device), rows, decodes
+        return torch.cat(pieces), rows, decodes
 
     def synthesize_batch(
         self,
@@ -535,25 +691,47 @@ class TorchVoice:
     # ------------------------------------------------------------------
 
     def warmup(self, batch_sizes: Sequence[int] = (1,), *, full: bool = False) -> None:
-        """Build the kernels (on CUDA) and run one encode per phoneme
-        bucket at each batch size. With `full`, also one whole batch
-        (encode, decode, copy to the host) per power-of-two row count up
-        to the largest batch size, at this voice's device and dtype: the
-        allocator's blocks, cuDNN's and cuBLAS's first calls and both
-        kernels' first launches, so no request pays for them."""
+        """Build the kernels (on CUDA), capture the encode graph of every
+        phoneme bucket and the streaming chunk's graph (runtime/graphs.py).
+        With `full`, also the flow graphs of every frame bucket at every
+        power-of-two row count up to the largest batch size's, and run
+        one whole batch (encode, decode, copy to the host) per
+        power-of-two row count up to the largest batch size, at this
+        voice's device and dtype: the allocator's blocks, cuDNN's and
+        cuBLAS's first calls and both kernels' first launches in the
+        eager generator, so no request pays for them."""
+        from .streaming import StreamingDecoder
+
         if self.device.type == "cuda":
             V.build()
         syn = SynthesisConfig(seed=0)
         tok = min(3, self.model_cfg.num_symbols - 1)
-        with torch.inference_mode(), self._precision():
-            for b in sorted(set(batch_sizes)):
-                for pb in self.phoneme_buckets:
-                    rows = [[tok] * pb] * b
-                    self._encode(rows, [utterance_seed(0, r) for r in rows], pb, syn,
-                                 self._speaker(syn, b))
+        b_max = max(batch_sizes)
+        # each graph's key twice: a key's first call runs eagerly, its
+        # second captures (runtime/graphs.py)
+        with torch.inference_mode():
+            for pb in self.phoneme_buckets:
+                for _ in range(2):
+                    self._encode([[tok] * pb], [utterance_seed(0, [tok] * pb)], pb, syn)
+            dec = StreamingDecoder(self)
+            z = torch.zeros((1, dec.window, self.model_cfg.inter_channels), dtype=self.dtype,
+                            device=self.device)
+            for _ in range(2):
+                dec._vocode(z, dec.window, 0, 0, self._speaker(syn, 1))
         if not full:
             return
-        b_max, rows = max(batch_sizes), 1
+        c = self.model_cfg.inter_channels
+        with torch.inference_mode():
+            for fb in self.frame_buckets:
+                b = 1
+                while True:
+                    z = torch.zeros((b, fb, c), dtype=self.dtype, device=self.device)
+                    for _ in range(2):
+                        self._flow(z, z[..., :1], self._speaker(syn, b))
+                    if b >= b_max:
+                        break
+                    b *= 2
+        rows = 1
         while True:
             self.collect(self.submit([[1, 0] + [tok, 0] * 30 + [2]] * rows, syn=syn))
             if rows >= b_max:

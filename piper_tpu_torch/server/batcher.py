@@ -15,12 +15,10 @@ to a collector thread that calls `voice.collect()`, so the next window
 is submitted while the last one is copied out. Waveform order within a
 request is preserved; under a fixed `syn.seed` the voice's
 per-utterance content-hash keys give each utterance the same noise in
-any batch, and the generator's plain stages run row by row, so on the
-card coalescing does not change a fast-precision row's bits
-(tests/test_torch_cuda.py checks the x-low, medium and high presets).
-In parity precision a row moves by a few 1e-8 with the batch: the
-encoder and flows run over the whole batch, and cuBLAS and cuDNN pick
-their float32 algorithms by its shape.
+any batch, the encodes run at one row count and conv_pre and the
+generator's plain stages run row by row, so on the card coalescing does
+not change a row's bits in either precision (tests/test_torch_cuda.py checks the x-low, low,
+medium and high presets at 16 rows).
 
 Admission is priority-ordered: requests carry `syn.priority` (lower
 dispatches sooner, FIFO within a priority) and an optional

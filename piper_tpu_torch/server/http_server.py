@@ -276,9 +276,12 @@ def main(argv=None):
     parser.add_argument(
         "--warmup", choices=["off", "encode", "full", "background"], default="background",
         help="Warm the serving path before requests pay for it (TorchVoice.warmup): "
-        "'encode' builds the kernels and encodes once per phoneme bucket, 'full' "
-        "also synthesises one batch per power-of-two row count; 'background' "
-        "(default) binds the port at once and runs 'full' on a daemon thread",
+        "'encode' builds the kernels and captures the CUDA graphs of each phoneme "
+        "bucket's encode (at its one row count, 16) and of the streamed chunk; "
+        "'full' also captures the flow graphs of every frame bucket at each "
+        "power-of-two row count up to the largest batch size, and synthesises one "
+        "batch per power-of-two row count; 'background' (default) binds the port "
+        "at once and runs 'full' on a daemon thread",
     )
     parser.add_argument("--warmup-batch-sizes", default="1,8",
                         help="Comma-separated batch sizes to warm (see --warmup)")
@@ -296,6 +299,10 @@ def main(argv=None):
     )
     args = parser.parse_args(argv)
     logging.basicConfig(level=logging.DEBUG if args.debug else logging.INFO)
+    # one decode per phoneme bucket of a coalesced batch (the JAX
+    # server's default, piper_tpu/server/http_server.py:367-368)
+    if args.decode_grouping is None:
+        args.decode_grouping = "uniform"
     voice = load_voice(args)
     sizes = tuple(int(s) for s in args.warmup_batch_sizes.split(",") if s)
     if args.batch_window_ms > 0:

@@ -267,10 +267,11 @@ def test_streaming_on_card_matches_cpu(medium):
 @pytest.mark.parametrize("precision", ["parity", "fast"])
 def test_one_frame_final_chunk_on_card(medium, precision):
     """136 frames stream as 45, 45, 45 and a final chunk of 1 frame (11
-    frames with its left context: stage-0 T = 88, shorter than one bf16
-    tile), each chunk through mrf_fused once and fused_upsample_mrf
-    twice; the chunks agree with one whole decode within the seam bounds
-    of the JAX package's streaming test."""
+    valid frames of the 65-frame window with its left context), each
+    chunk one replay of the chunk graph, which holds mrf_fused once and
+    fused_upsample_mrf twice; a replayed stream gives the bytes of the
+    stream that captured the graph; the chunks agree with one whole
+    decode within the seam bounds of the JAX package's streaming test."""
     from piper_tpu_torch.models.vits import model as M
     from piper_tpu_torch.runtime.streaming import StreamingDecoder
 
@@ -279,11 +280,13 @@ def test_one_frame_final_chunk_on_card(medium, precision):
     u = cfg.upsample_factor
     g = torch.Generator().manual_seed(4)
     z_p = torch.randn((1, 136, cfg.inter_channels), generator=g).to(voice.device, voice.dtype)
+    first = list(StreamingDecoder(voice).stream(z_p, 136))  # captures the chunk graph
     n0, n1 = V.mrf_fused.launches, V.fused_upsample_mrf.launches
     chunks = list(StreamingDecoder(voice).stream(z_p, 136))
     assert (V.mrf_fused.launches - n0, V.fused_upsample_mrf.launches - n1) == (4, 8)
     assert [len(c) // u for c in chunks] == [45, 45, 45, 1]
-    with torch.inference_mode(), voice._precision():
+    assert all(a.tobytes() == b.tobytes() for a, b in zip(first, chunks))
+    with torch.inference_mode():
         mask = torch.ones((1, 136, 1), device=z_p.device, dtype=z_p.dtype)
         whole = M.synthesizer_vocode(voice.params, z_p, mask, cfg=cfg)[0].float().cpu()
     streamed = torch.cat([torch.from_numpy(c) for c in chunks])
@@ -342,18 +345,19 @@ def test_request_racing_background_warmup_builds_once(medium, monkeypatch):
 
 
 @pytest.mark.parametrize("precision", ["fast", "parity"])
-@pytest.mark.parametrize("quality", ["x-low", "medium", "high"])
+@pytest.mark.parametrize("quality", ["x-low", "low", "medium", "high"])
 def test_coalesced_rows_equal_solo_rows_on_card(dev, quality, precision):
-    """What the batcher relies on: rows of several phoneme buckets and
-    lengths (past 256 frames, so a bfloat16 count would round), each with
-    its own seed, in one submit give each row's solo audio. On every
-    preset's stage split: x-low and medium run stage 0's transposed conv
-    row by row before mrf_fused; high runs its two wide cuDNN stages row
-    by row. fast (the serving precision): the same bits. parity: within
-    1e-6, not bit for bit: in the layers that run over the whole batch
-    (encoder, flows, conv_pre) cuBLAS and cuDNN pick their float32
-    algorithms by the batch's shape, which moves the samples by a few
-    1e-8."""
+    """What the batcher relies on: 16 rows (the batcher's max_batch) of
+    several phoneme buckets and lengths (past 256 frames, so a bfloat16
+    count would round), each with its own seed, in one submit give each
+    row's solo audio bit for bit, in both precisions. On every preset's
+    stage split: x-low, low and medium run stage 0's transposed conv row
+    by row before mrf_fused; high runs its two wide cuDNN stages row by
+    row. Encodes run at one row count (ENCODE_ROWS): over a batch of
+    another size the text encoder moved a row by up to 4e-6 in float32
+    and 3e-2 in bf16; conv_pre runs row by row: over the batch it moved
+    an x-low and a high row by 1.6e-2 in bf16 (python
+    tools/row_invariance.py)."""
     import numpy as np
 
     from piper_tpu_torch.config import ModelConfig, SynthesisConfig
@@ -363,15 +367,137 @@ def test_coalesced_rows_equal_solo_rows_on_card(dev, quality, precision):
     cfg = ModelConfig.for_quality(quality, num_symbols=256)
     voice = TorchVoice(init_synthesizer_params(2, cfg), cfg, random_voice_config(cfg),
                        precision=precision, device="cuda", seed=0)
-    rows = [_long_ids(n) for n in (5, 23, 40, 61, 90, 120, 14, 77)]
-    seeds = [3, 2**40 + 7, -5, 11, 0, 2**32 - 1, 8, 13]
+    rows = [_long_ids(n) for n in (5, 23, 40, 61, 90, 120, 14, 77, 33, 8, 101, 47, 66, 19, 130, 55)]
+    seeds = [3, 2**40 + 7, -5, 11, 0, 2**32 - 1, 8, 13, 21, 34, 55, 89, 144, 233, 377, 610]
     together = voice.collect(voice.submit(rows, row_seeds=seeds))
     frames = [len(a) // cfg.upsample_factor for a in together]
     assert max(frames) > 256, frames
     for i, (row, seed) in enumerate(zip(rows, seeds)):
         alone = voice.synthesize_ids_batch([row], syn=SynthesisConfig(seed=seed))[0]
-        if precision == "fast":
-            np.testing.assert_array_equal(together[i], alone, err_msg=f"row {i} ({frames[i]} frames)")
-        else:
-            np.testing.assert_allclose(together[i], alone, atol=1e-6, rtol=0,
-                                       err_msg=f"row {i} ({frames[i]} frames)")
+        np.testing.assert_array_equal(together[i], alone, err_msg=f"row {i} ({frames[i]} frames)")
+
+
+@pytest.mark.parametrize("precision", ["fast", "parity"])
+def test_graph_replay_equals_eager_on_card(medium, precision):
+    """Each graph kind, replayed with new inputs, gives the bits of its
+    function run eagerly on the same inputs at the same shape: the
+    encode graph (two phoneme buckets, 3 rows padded to 4), the flow
+    graph of each decode, and the streamed chunk's graph (a full window
+    and a short one)."""
+    from piper_tpu_torch.config import SynthesisConfig
+    from piper_tpu_torch.runtime.streaming import StreamingDecoder
+
+    voice = _medium_voice(medium, precision)
+    calls = []
+    run = voice.graphs.run
+
+    def spying_run(key, fn, inputs):
+        out = run(key, fn, inputs)
+        calls.append((key, fn, [None if x is None else x.to(voice.device) for x in inputs], out))
+        return out
+
+    voice.graphs.run = spying_run
+    rows = [_long_ids(n) for n in (10, 12, 14)] + [_long_ids(n) for n in (40, 45, 50)]
+    for seed in (1, 2):  # the first call captures, the second replays
+        voice.synthesize_ids_batch(rows, syn=SynthesisConfig(seed=seed))
+    g = torch.Generator().manual_seed(2)
+    z_p = torch.randn((1, 120, voice.model_cfg.inter_channels), generator=g).to("cuda", voice.dtype)
+    for _ in range(2):
+        list(StreamingDecoder(voice).stream(z_p, 120))
+    kinds = {key[0] for key, *_ in calls}
+    assert kinds == {"encode", "flow", "chunk"}, kinds
+    seen, replays = set(), []
+    for call in calls:
+        if call[0] in seen:
+            replays.append(call)
+        seen.add(call[0])
+    assert len(replays) >= 4
+    with torch.inference_mode():
+        for key, fn, inputs, out in replays:
+            eager = fn(*inputs)
+            assert len(eager) == len(out)
+            for e, o in zip(eager, out):
+                assert torch.equal(e, o), key
+
+
+def test_two_threads_replay_the_chunk_graph_at_once(medium):
+    """Two streams at once through one chunk graph (the cache's lock
+    from the copy into its inputs to the clone of its outputs): each
+    gets the bytes it gets alone."""
+    import threading
+
+    from piper_tpu_torch.runtime.streaming import StreamingDecoder
+
+    voice = _medium_voice(medium, "fast")
+    g = torch.Generator().manual_seed(3)
+    zs = [torch.randn((1, n, voice.model_cfg.inter_channels), generator=g).to("cuda", voice.dtype)
+          for n in (400, 371)]
+    alone = [[c.tobytes() for c in StreamingDecoder(voice).stream(z, z.shape[1])] for z in zs]
+    got = [None, None]
+    barrier = threading.Barrier(2)
+
+    def stream(i):
+        barrier.wait()
+        got[i] = [c.tobytes() for c in StreamingDecoder(voice).stream(zs[i], zs[i].shape[1])]
+
+    threads = [threading.Thread(target=stream, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    assert not any(t.is_alive() for t in threads)
+    assert got == alone
+    assert voice.graphs.stats["captures"] == 1
+
+
+def test_streams_and_coalesced_batches_at_once_on_card(medium):
+    """The graphs share one memory pool, so one graph's replay may
+    overwrite another's outputs before they are cloned. Streams on three
+    threads (encode and chunk graph replays) while a fourth submits a
+    batch of several phoneme buckets (encode and flow graph replays),
+    each over and over: every stream and every batch gets the bytes it
+    gets alone."""
+    import threading
+
+    from piper_tpu_torch.config import SynthesisConfig
+    from piper_tpu_torch.runtime.streaming import synthesize_stream_chunks
+
+    voice = _medium_voice(medium, "fast")
+    stream_ids = [_long_ids(n) for n in (30, 45, 60)]
+    batch = [_long_ids(n) for n in (5, 23, 40, 61, 90, 14)]
+
+    def run_stream(ids):
+        return [c.tobytes() for c in synthesize_stream_chunks(voice, ids, syn=SynthesisConfig(seed=4))]
+
+    def run_batch():
+        return [a.tobytes() for a in voice.collect(voice.submit(batch, row_seeds=list(range(len(batch)))))]
+
+    for _ in range(2):  # a key's second call captures its graph
+        alone_streams = [run_stream(ids) for ids in stream_ids]
+        alone_batch = run_batch()
+    captures = voice.graphs.stats["captures"]
+    got_streams, got_batches = [[] for _ in stream_ids], []
+    barrier = threading.Barrier(len(stream_ids) + 1)
+
+    def streamer(i):
+        barrier.wait()
+        for _ in range(6):
+            got_streams[i].append(run_stream(stream_ids[i]))
+
+    def batcher():
+        barrier.wait()
+        for _ in range(6):
+            got_batches.append(run_batch())
+
+    threads = [threading.Thread(target=streamer, args=(i,)) for i in range(len(stream_ids))]
+    threads.append(threading.Thread(target=batcher))
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    assert not any(t.is_alive() for t in threads)
+    assert voice.graphs.stats["captures"] == captures
+    assert [len(s) for s in got_streams] == [6] * len(stream_ids) and len(got_batches) == 6
+    for i, runs in enumerate(got_streams):
+        assert all(r == alone_streams[i] for r in runs), i
+    assert all(b == alone_batch for b in got_batches)

@@ -633,16 +633,19 @@ def _in_threads(n, fn):
     return out
 
 
-def test_parity_threads_keep_tf32_off_and_restore_it(params, monkeypatch):
-    """8 parity requests at once: each computes with TF32 off for its whole
-    vocode, gives the bytes it gives alone, and the flags end as they
-    began."""
+def test_voice_build_turns_tf32_off_for_every_thread(params, monkeypatch):
+    """Building a voice switches TF32 off for the process, once: 8 parity
+    requests at once each compute with TF32 off for their whole generator,
+    no call switches the flags, and each gives the bytes it gives alone."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
     voice = _voice(params, "parity")
+    assert (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32) == (False, False)
     reqs = [r[0] for r in _requests(8, seed=21)]
     serial = [voice.synthesize_ids_batch([r], syn=SynthesisConfig(seed=i))[0]
               for i, r in enumerate(reqs)]
     seen = []
-    vocode = M.synthesizer_vocode
+    vocode = M.synthesizer_generate
 
     def observing_vocode(*a, **k):
         before = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
@@ -650,12 +653,8 @@ def test_parity_threads_keep_tf32_off_and_restore_it(params, monkeypatch):
         seen.append((before, (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)))
         return out
 
-    monkeypatch.setattr(M, "synthesizer_vocode", observing_vocode)
-    flags = (True, True)
-    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
-    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(M, "synthesizer_generate", observing_vocode)
     got = _in_threads(8, lambda i: voice.synthesize_ids_batch([reqs[i]], syn=SynthesisConfig(seed=i))[0])
-    assert (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32) == flags
     assert len(seen) == 8 and all(s == ((False, False), (False, False)) for s in seen), seen
     for g, s in zip(got, serial):
         assert g.tobytes() == s.tobytes()

@@ -1,0 +1,162 @@
+"""Which layers move a row with the batch it rides in, and what turning
+TF32 off costs fast precision.
+
+    python tools/row_invariance.py [--quality medium] [--device cuda]
+
+Part 1: the rows of a coalesced batch (tests/test_torch_cuda.py's 16
+rows, one group per phoneme bucket, padded to a power of two with
+copies of its first row) go through each layer that runs over the
+whole batch: the text encoder, the duration predictor, the reverse
+flow and conv_pre, once over the group and once per row alone at the
+row's own length (and, for the frame-level layers, alone at the
+group's length). Prints the largest difference on valid positions per
+layer and precision: 0 means that layer keeps a row's bits.
+
+Part 2: a warm fast-precision batch of 16 rows with the TF32 switches
+at PyTorch's defaults and with both off (as a TorchVoice leaves them): the int16 samples that differ,
+and the device time of the batch (torch.profiler, the sum of kernel
+time), in turns A B B A.
+
+Prints one JSON line per part. Runs on CUDA unless --device cpu.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+
+from piper_tpu_torch.config import ModelConfig, SynthesisConfig  # noqa: E402
+from piper_tpu_torch.models.vits import duration as D  # noqa: E402
+from piper_tpu_torch.models.vits import encoder as E  # noqa: E402
+from piper_tpu_torch.models.vits import flow as F  # noqa: E402
+from piper_tpu_torch.models.vits import layers as L  # noqa: E402
+from piper_tpu_torch.models.vits.model import init_synthesizer_params  # noqa: E402
+from piper_tpu_torch.ops import nn as tnn  # noqa: E402
+from piper_tpu_torch.runtime import batching  # noqa: E402
+from piper_tpu_torch.runtime.voice import (  # noqa: E402
+    TorchVoice, random_voice_config, resolve_device, tf32_off,
+)
+
+LENGTHS = (5, 23, 40, 61, 90, 120, 14, 77, 33, 8, 101, 47, 66, 19, 130, 55)
+
+
+def _ids(n: int):
+    g = torch.Generator().manual_seed(n)
+    return [1, 0] + [int(x) for s in torch.randint(3, 256, (n,), generator=g) for x in (s, 0)] + [2]
+
+
+def _max_diff(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
+
+
+def layer_diffs(voice: TorchVoice) -> dict:
+    """Largest |row in group - row alone| per layer over every group."""
+    cfg, p, dt, dev = voice.model_cfg, voice.params, voice.dtype, voice.device
+    rows = [_ids(n) for n in LENGTHS]
+    gen = torch.Generator().manual_seed(0)
+    out = {k: 0.0 for k in ("text_encoder", "duration", "flow", "flow_group_length",
+                            "conv_pre", "conv_pre_group_length")}
+    with torch.inference_mode():
+        for bucket, idx in batching.group_by_bucket([len(r) for r in rows], voice.phoneme_buckets):
+            # padded to a power of two with copies of the group's first
+            # row, as the encode graphs pad
+            idx = idx + idx[:1] * (batching.round_rows(len(idx)) - len(idx))
+            b = len(idx)
+            ids = torch.zeros((b, bucket), dtype=torch.long)
+            for j, i in enumerate(idx):
+                ids[j, : len(rows[i])] = torch.tensor(rows[i])
+            lens = torch.tensor([len(rows[i]) for i in idx])
+            ids, lens = ids.to(dev), lens.to(dev)
+            x_mask = tnn.sequence_mask(lens, bucket).to(dt)
+            x, m_p, _ = E.text_encoder_apply(p["enc_p"], ids, x_mask, cfg=cfg, dtype=dt)
+            noise = torch.randn((b, bucket, 2), generator=gen).to(dev)
+            logw = D.sdp_reverse(p["dp"], x, x_mask, cfg=cfg, noise_w=0.8, noise=noise, dtype=dt)
+            # frame-level layers: rows of 3x their ids' length in frames
+            frames = [3 * len(rows[i]) for i in idx]
+            t = max(frames)
+            f_mask = (torch.arange(t)[None, :] < torch.tensor(frames)[:, None])[..., None]
+            z = (torch.randn((b, t, cfg.inter_channels), generator=gen) * f_mask).to(dev, dt)
+            f_mask = f_mask.to(dev, dt)
+            zf = F.flow_apply(p["flow"], z, f_mask, cfg=cfg, reverse=True)
+            pre = L.conv(p["dec"]["conv_pre"], zf * f_mask, padding=3)
+            for j in range(b):
+                n_ids = int(lens[j])
+                xj, mj, _ = E.text_encoder_apply(p["enc_p"], ids[j : j + 1], x_mask[j : j + 1],
+                                                 cfg=cfg, dtype=dt)
+                out["text_encoder"] = max(out["text_encoder"], _max_diff(mj[0, :n_ids], m_p[j, :n_ids]))
+                lj = D.sdp_reverse(p["dp"], x[j : j + 1], x_mask[j : j + 1], cfg=cfg, noise_w=0.8,
+                                   noise=noise[j : j + 1], dtype=dt)
+                out["duration"] = max(out["duration"], _max_diff(lj[0, :n_ids], logw[j, :n_ids]))
+                n = frames[j]
+                for key, width in (("flow", n), ("flow_group_length", t)):
+                    zj = F.flow_apply(p["flow"], z[j : j + 1, :width], f_mask[j : j + 1, :width],
+                                      cfg=cfg, reverse=True)
+                    out[key] = max(out[key], _max_diff(zj[0, :n], zf[j, :n]))
+                    # conv_pre on the group's flow output: this layer alone
+                    pj = L.conv(p["dec"]["conv_pre"], (zf * f_mask)[j : j + 1, :width], padding=3)
+                    ckey = key.replace("flow", "conv_pre")
+                    out[ckey] = max(out[ckey], _max_diff(pj[0, :n], pre[j, :n]))
+    return out
+
+
+def tf32_cost(voice: TorchVoice, reps: int = 3) -> dict:
+    """Fast precision, a warm 16-row batch: TF32 switches at PyTorch's
+    defaults (A) and both off (B)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(0)
+    rows = [[1, 0] + [int(t) for t in rng.integers(3, 256, 250)] + [0, 2] for _ in range(16)]
+    syn = SynthesisConfig(seed=7)
+    # A: PyTorch's defaults (no TF32 in matmuls, TF32 in cuDNN); B: both off
+    flags = {"A": (False, True), "B": (False, False)}
+    outs, device_ms, wall_ms = {}, {"A": [], "B": []}, {"A": [], "B": []}
+    for which in ["A", "B", "B", "A"] * reps:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags[which]
+        voice.synthesize_ids_batch(rows, syn=syn)  # warm at these flags
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            got = voice.synthesize_ids_batch(rows, syn=syn)
+            wall_ms[which].append((time.perf_counter() - t0) * 1e3)
+        ev = [e for e in prof.key_averages() if str(getattr(e, "device_type", "")).endswith("CUDA")]
+        device_ms[which].append(sum(e.self_device_time_total for e in ev) / 1e3)
+        outs[which] = np.concatenate(got)
+    tf32_off()
+    a, b = (np.round(outs[k] * 32767).astype(np.int32) for k in "AB")
+    return {
+        "flags_A": flags["A"], "flags_B": flags["B"], "samples": int(a.size),
+        "samples_differing": int((a != b).sum()), "max_int16_step": int(np.abs(a - b).max()),
+        "device_ms_A": device_ms["A"], "device_ms_B": device_ms["B"],
+        "wall_ms_A": wall_ms["A"], "wall_ms_B": wall_ms["B"],
+    }
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(prog="tools/row_invariance.py")
+    ap.add_argument("--quality", default="medium")
+    ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+    ap.add_argument("--reps", type=int, default=3)
+    args = ap.parse_args(argv)
+    dev = resolve_device(args.device)
+    cfg = ModelConfig.for_quality(args.quality, num_symbols=256)
+    params = init_synthesizer_params(2, cfg)
+    name = torch.cuda.get_device_name(0) if dev.type == "cuda" else "cpu"
+    for precision in ("parity", "fast"):
+        voice = TorchVoice(params, cfg, random_voice_config(cfg), precision=precision,
+                           device=dev, seed=0)
+        print(json.dumps({"part": "layers", "quality": args.quality, "precision": precision,
+                          "device": name, "max_abs_diff": layer_diffs(voice)}), flush=True)
+    fast = TorchVoice(params, cfg, random_voice_config(cfg), precision="fast", device=dev, seed=0)
+    print(json.dumps({"part": "tf32", "quality": args.quality, "device": name,
+                      **tf32_cost(fast, args.reps)}), flush=True)
+
+
+if __name__ == "__main__":
+    main()
