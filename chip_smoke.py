@@ -39,7 +39,19 @@ Phases (any failure makes the exit code non-zero):
      response equal to the request alone: the graphs share one memory
      pool); the seams of streaming in parity precision against one
      whole decode; both bf16 kernels at the streaming chunk's shape;
-  5. one JSON line of per-kernel numbers, then the device line.
+  5. published voices: phase 3's voice written as a piper_train .ckpt
+     (the port's state_dict_from_params) and as a registry voice (.onnx
+     initializers, sidecar, voices.json), each format's load time, and
+     python -m piper_tpu_torch -m voice.ckpt and -m <registry name> with
+     phase 3's lines and seed: the .npz run's WAVs byte for byte, with
+     urlopen made to raise; the trained two-speaker x-low voice behind
+     the server with the batcher in both precisions (64 GETs from 8
+     clients alternating speaker_id, each equal to the request alone,
+     requests/s; the speakers differ; an unknown speaker answered 400);
+     one medium row of ~12,000 frames (past the 4096-frame ladder) in
+     both precisions (full length, one decode, peak memory, wall), and
+     both kernels against their plain versions at B = 1 and its length;
+  6. one JSON line of per-kernel numbers, then the device line.
 
 Needs one CUDA card; prints no result and exits non-zero without one.
 
@@ -971,6 +983,284 @@ def phase_serving(cfg, params_np, card, peaks):
         phase_kernels(cfg, params_np, peaks, frames=frames_chunk, dtypes=(torch.bfloat16,))
 
 
+# ---------------------------------------------------------------------------
+# Phase 5: published voices (.ckpt, .onnx, registry names, two speakers,
+# a row past the frame-bucket ladder)
+# ---------------------------------------------------------------------------
+
+MS2_VOICE = ROOT / "tests" / "data" / "voice_xlow_ms2_trained_fp16.npz"
+LONG_FRAMES = 12000  # the long row's target: ~3 x the largest frame bucket
+VOICE_NAME = "xx_XX-smoke-medium"
+
+
+def zero_counts() -> None:
+    from piper_tpu_torch.ops.cuda import vocoder as V
+
+    V.mrf_fused.launches = 0
+    V.fused_upsample_mrf.launches = 0
+
+
+def read_counts():
+    from piper_tpu_torch.ops.cuda import vocoder as V
+
+    return V.mrf_fused.launches, V.fused_upsample_mrf.launches
+
+
+def _pb_varint(n: int) -> bytes:
+    out = bytearray()
+    while True:
+        out.append((n & 0x7F) | (0x80 if n > 0x7F else 0))
+        n >>= 7
+        if not n:
+            return bytes(out)
+
+
+def _pb_field(num: int, wire: int, payload) -> bytes:
+    tag = _pb_varint(num << 3 | wire)
+    return tag + (_pb_varint(payload) if wire == 0 else _pb_varint(len(payload)) + payload)
+
+
+def write_onnx_initializers(path: Path, state_dict) -> None:
+    """An ONNX ModelProto whose graph holds `state_dict` as float32
+    initializers (TensorProto dims, data_type 1, name, raw_data): the
+    module-named initializer table of a reference export, which is all
+    weights/onnx_loader.py reads; no graph nodes."""
+    import numpy as np
+
+    tensors = []
+    for name, arr in state_dict.items():
+        arr = np.ascontiguousarray(arr, np.float32)
+        t = b"".join(_pb_field(1, 0, d) for d in arr.shape) + _pb_field(2, 0, 1)
+        tensors.append(t + _pb_field(8, 2, name.encode()) + _pb_field(9, 2, arr.tobytes()))
+    graph = b"".join(_pb_field(5, 2, t) for t in tensors)
+    path.write_bytes(_pb_field(1, 0, 8) + _pb_field(7, 2, graph))
+
+
+def write_published(tmp: Path, cfg, params_np):
+    """Phase 3's medium voice as voice.ckpt (piper_train's Lightning
+    layout, through the port's state_dict_from_params) and as a registry
+    voice: <name>.onnx with its sidecar and a voices.json that lists both
+    files by size and md5."""
+    import dataclasses
+
+    import torch
+
+    from piper_tpu_torch.runtime.download import get_file_hash
+    from piper_tpu_torch.weights.torch_export import state_dict_from_params
+
+    sd = state_dict_from_params(params_np, cfg)
+    hp = {k: v for k, v in dataclasses.asdict(cfg).items() if k != "audio"}
+    torch.save({"state_dict": {"model_g." + k: torch.from_numpy(v) for k, v in sd.items()},
+                "hyper_parameters": hp}, tmp / "voice.ckpt")
+    sidecar = (tmp / "voice.npz.json").read_text()
+    (tmp / "voice.ckpt.json").write_text(sidecar)
+    data = tmp / "data"
+    data.mkdir()
+    write_onnx_initializers(data / f"{VOICE_NAME}.onnx", sd)
+    (data / f"{VOICE_NAME}.onnx.json").write_text(sidecar)
+    files = {f"xx/xx_XX/smoke/medium/{f.name}": {"size_bytes": f.stat().st_size, "md5_digest": get_file_hash(f)}
+             for f in sorted(data.iterdir())}
+    (data / "voices.json").write_text(json.dumps({VOICE_NAME: {
+        "key": VOICE_NAME, "language": {"code": "xx_XX"}, "quality": "medium", "num_speakers": 1,
+        "aliases": [], "files": files}}))
+    return data
+
+
+def phase_published_files(tmp: Path, cfg, params_np, card: str) -> None:
+    """The .ckpt and a registry name through the CLI at full medium
+    width, with phase 3's lines and seed: the WAVs of the .npz run, byte
+    for byte, through both kernels, with no network call; and each
+    format's load time."""
+    import torch
+
+    from piper_tpu_torch.runtime import download
+    from piper_tpu_torch.runtime.voice import TorchVoice
+    from piper_tpu_torch.weights.native import load_native
+    from piper_tpu_torch.weights.onnx_loader import load_onnx_voice
+    from piper_tpu_torch.weights.torch_loader import load_torch_checkpoint
+
+    t0 = time.perf_counter()
+    data = write_published(tmp, cfg, params_np)
+    print(f"published voices: .ckpt and .onnx written in {time.perf_counter() - t0:.3f} s "
+          f"({(tmp / 'voice.ckpt').stat().st_size / 2**20:.1f} / "
+          f"{(data / f'{VOICE_NAME}.onnx').stat().st_size / 2**20:.1f} MiB)")
+    npz_wavs = sorted((tmp / "a").glob("*.wav"))
+    onnx_path = data / f"{VOICE_NAME}.onnx"
+    loaders = {
+        "npz": (tmp / "voice.npz", lambda: load_native(str(tmp / "voice.npz"))),
+        "ckpt": (tmp / "voice.ckpt", lambda: load_torch_checkpoint(str(tmp / "voice.ckpt"))),
+        "onnx": (onnx_path, lambda: load_onnx_voice(str(onnx_path), cfg)),
+    }
+    for fmt, (path, loader) in loaders.items():
+        reads, loads = [], []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            tree, got_cfg = loader()
+            reads.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            voice = TorchVoice.load(path, precision="fast")
+            torch.cuda.synchronize()
+            loads.append(time.perf_counter() - t0)
+        check(got_cfg.upsample_rates == cfg.upsample_rates and voice.model_cfg.hidden_channels == 192,
+              f"{fmt}: medium config read back")
+        print(f"load time, {fmt} ({path.stat().st_size / 2**20:.1f} MiB): file read to the numpy tree "
+              f"{reads[0]:.4f} / {reads[1]:.4f} s, TorchVoice.load (tree, upload, time-major weights) "
+              f"{loads[0]:.4f} / {loads[1]:.4f} s (first / second in this process)  [{card}]", flush=True)
+        del voice
+
+    def no_network(*a, **k):
+        raise RuntimeError(f"network call: urlopen{a}")
+
+    saved, download.urlopen = download.urlopen, no_network
+    try:
+        for run, (what, argv) in enumerate((
+            (".ckpt", ["-m", str(tmp / "voice.ckpt")]),
+            (f"registry name {VOICE_NAME} (.onnx)",
+             ["-m", VOICE_NAME, "--data-dir", str(data), "--download-dir", str(data)]),
+        )):
+            out = tmp / f"published_{run}"
+            zero_counts()
+            t0 = time.perf_counter()
+            run_cli(argv + ["-d", str(out), "--batch", "--seed", "1", "-q"], TEXTS)
+            wall = time.perf_counter() - t0
+            n_mrf, n_fused = read_counts()
+            wavs = sorted(out.glob("*.wav"))
+            same = sum((out / p.name).exists() and (out / p.name).read_bytes() == p.read_bytes()
+                       for p in npz_wavs)
+            check(len(wavs) == len(npz_wavs) == len(TEXTS) and same == len(TEXTS),
+                  f"CLI -m {what}: {same} of {len(TEXTS)} WAVs equal the .npz run's byte for byte "
+                  f"({wall:.3f} s)  [{card}]")
+            check(n_mrf >= 1 and n_fused == 2 * n_mrf,
+                  f"CLI -m {what} launched mrf_fused {n_mrf} and fused_upsample_mrf {n_fused} times")
+    finally:
+        download.urlopen = saved
+
+
+def phase_two_speakers(card: str) -> None:
+    """The trained two-speaker x-low voice behind the server with the
+    batcher, in both precisions: 64 GETs from 8 clients alternating
+    speaker_id 0 and 1, each equal to the request served alone; the two
+    speakers' audio differs; a speaker the voice lacks is answered 400."""
+    import urllib.parse
+
+    import numpy as np
+
+    from piper_tpu_torch.runtime.voice import TorchVoice, random_voice_config
+    from piper_tpu_torch.weights.native import load_native
+
+    with tempfile.TemporaryDirectory() as d:
+        path = Path(d) / "voice.npz"
+        shutil.copy(MS2_VOICE, path)
+        _, cfg = load_native(str(path))
+        (Path(d) / "voice.npz.json").write_text(json.dumps(random_voice_config(cfg).to_dict()))
+        for precision in ("fast", "parity"):
+            voice = TorchVoice.load(path, precision=precision, seed=0)
+            check(voice.model_cfg.num_speakers == 2, f"two-speaker voice ({precision}) loads with 2 speakers")
+            t0 = time.perf_counter()
+            voice.warmup((1, 16), full=True)
+            warm_s = time.perf_counter() - t0
+            # 16 requests: 4 texts x seeds, speaker_id alternating with j
+            paths = [f"/?text={urllib.parse.quote(TEXTS[j % len(TEXTS)])}&seed={j // 2}&speaker_id={j % 2}"
+                     for j in range(16)]
+            server, port, thread = serve_in_process(voice)
+            try:
+                alone = [http_get(port, p) for p in paths]
+                zero_counts()
+                batches0 = voice.batcher.stats["batches"]
+                got, wall = clients(port, paths, 8, 8)
+                n_mrf, n_fused = read_counts()
+                batches = voice.batcher.stats["batches"] - batches0
+                same = sum(g[0] == 200 and g[2] == alone[j][2] for j, g in got)
+                check(len(got) == 64 and same == 64 and all(a[0] == 200 for a in alone),
+                      f"two speakers ({precision}): {same} of {len(got)} GETs from 8 clients alternating "
+                      f"speaker_id equal the request served alone")
+                check(n_mrf >= 1 and n_fused == 2 * n_mrf and 0 < batches < 64,
+                      f"two speakers ({precision}): {batches} batches for 64 GETs, mrf_fused {n_mrf} and "
+                      f"fused_upsample_mrf {n_fused} launches")
+                s0, s1 = wav_pcm(alone[0][2])[1], wav_pcm(alone[1][2])[1]
+                check(len(s0) > 0 and not np.array_equal(s0, s1[: len(s0)]),
+                      f"two speakers ({precision}): speaker 0 and 1 give different audio "
+                      f"({len(s0)} / {len(s1)} samples)")
+                status = http_get(port, paths[0].replace("speaker_id=0", "speaker_id=2"))[0]
+                check(status == 400, f"two speakers ({precision}): speaker_id 2 answered {status}")
+                lat = np.array([g[3] for _, g in got])
+                print(f"two-speaker window ({precision}, x-low trained, warm-up {warm_s:.2f} s): 64 GETs from "
+                      f"8 closed-loop clients in {wall} s: {64 / wall} requests/s, latency p50 "
+                      f"{np.percentile(lat, 50)} s, p99 {np.percentile(lat, 99)} s; {batches} batches  "
+                      f"[{card}]", flush=True)
+            finally:
+                stop_serving(server, thread, voice)
+            del voice
+
+
+def long_row(voice, target: int):
+    """ids and a length_scale whose row lands near `target` frames
+    (noise_w 0: the durations follow length_scale alone), found with the
+    encode only; returns (ids, syn, frames)."""
+    from piper_tpu_torch.config import SynthesisConfig
+    from piper_tpu_torch.runtime.batching import pick_bucket
+    from piper_tpu_torch.runtime.voice import utterance_seed
+
+    ids = [1, 0] + [40 + (7 * i) % 200 for i in range(250)] + [0, 2]
+    bucket = pick_bucket(len(ids), voice.phoneme_buckets)
+    scale, frames = 1.0, 0
+    for _ in range(6):
+        syn = SynthesisConfig(seed=9, length_scale=scale, noise_w=0.0)
+        enc, f = voice._encode([ids], [utterance_seed(9, ids)], bucket, syn)
+        frames = voice._read_frames([f])[0][0]
+        if abs(frames - target) <= target // 100:
+            break
+        scale *= target / max(frames, 1)
+    return ids, syn, frames
+
+
+def phase_long_row(cfg, params_np, card: str, peaks) -> None:
+    """One row past the 4096-frame ladder at medium (~12,000 frames), in
+    fast and parity precision: decoded in one call (its flow eagerly,
+    the generator through both kernels), its full length, peak device
+    memory and wall; then both kernels against their plain versions at
+    B = 1 and that length."""
+    import numpy as np
+    import torch
+
+    from piper_tpu_torch.runtime.voice import TorchVoice
+
+    frames = 0
+    for precision in ("fast", "parity"):
+        voice = TorchVoice(params_np, cfg, _voice_cfg(cfg), precision=precision, device="cuda", seed=0)
+        ids, syn, frames = long_row(voice, LONG_FRAMES)
+        voice.synthesize_ids_batch([[1, 0, 50, 0, 2]], syn=syn)  # first calls of cuBLAS/cuDNN
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        walls = []
+        for _ in range(2):  # the first call at this length, then again
+            t0 = time.perf_counter()
+            handle = voice.submit([ids], syn=syn)
+            audio = voice.collect(handle)[0]
+            walls.append(time.perf_counter() - t0)
+        n_mrf, n_fused = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        u = cfg.upsample_factor
+        top = voice.frame_buckets[-1]
+        check(frames > top and len(audio) == frames * u and handle["decodes"] == 1
+              and bool(np.isfinite(audio).all()) and float(np.abs(audio).max()) > 0,
+              f"long row ({precision}): {frames} frames past the {top}-frame ladder, "
+              f"{len(audio)} samples = frames x {u}, one decode, finite, non-zero")
+        check(n_mrf == 2 and n_fused == 4,
+              f"long row ({precision}), two runs, launched mrf_fused {n_mrf} and fused_upsample_mrf "
+              f"{n_fused} times")
+        print(f"long row ({precision}, medium, {len(ids)} ids, length_scale {syn.length_scale:.4f}): "
+              f"{frames} frames, {len(audio) / cfg.audio.sample_rate:.2f} audio-s in {walls[0]:.4f} s of wall "
+              f"(first call at this length), {walls[1]:.4f} s (second); peak device memory {peak / 2**20:.1f} MiB "
+              f"({(peak - base) / 2**20:.1f} MiB above the {base / 2**20:.1f} MiB held before)  [{card}]",
+              flush=True)
+        del voice
+    # both kernels at B = 1 and the long row's length, in both dtypes
+    phase_kernels(cfg, params_np, peaks, frames=(frames,))
+
+
 SPANNED = ("submit", "_encode", "_read_frames", "_latents", "_flow")
 
 
@@ -1172,6 +1462,10 @@ def main(argv) -> int:
         phase_benchmark(tmp, smi)
         # 4. serving path
         phase_serving(cfg, params_np, smi, peaks)
+        # 5. published voices
+        phase_published_files(tmp, cfg, params_np, smi)
+    phase_two_speakers(smi)
+    phase_long_row(cfg, params_np, smi, peaks)
 
     kernels = []
     for kname in ("mrf_fused", "fused_upsample_mrf"):

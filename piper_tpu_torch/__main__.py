@@ -12,8 +12,12 @@ reference CLI, src/python_run/piper/__main__.py). Modes:
                    synthesises all lines in one device batch (with the
                    command line's speaker and scales for every line)
 
-Runs on CUDA unless --device cpu is given; without a GPU it exits with
-an error rather than falling back to the CPU.
+-m takes a .onnx, .ckpt or .npz voice (its JSON config beside it) or a
+voice name of the piper-voices registry, resolved offline from the
+embedded snapshot when its files are in a --data-dir. --pack-total is
+accepted and has no effect. Runs on CUDA unless --device cpu is given;
+without a GPU it exits with an error rather than falling back to the
+CPU.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ import logging
 import sys
 import wave
 from pathlib import Path
+from typing import Any, Dict
 
 import numpy as np
 
@@ -38,8 +43,7 @@ _LOGGER = logging.getLogger("piper_tpu_torch")
 
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="piper_tpu_torch")
-    parser.add_argument("-m", "--model", required=True, help="Path to a native .npz voice")
-    parser.add_argument("-c", "--config", help="Path to the voice JSON config")
+    add_voice_arguments(parser)
     parser.add_argument("-f", "--output-file", "--output_file",
                         help="Output WAV file (default: stdout)")
     parser.add_argument("-d", "--output-dir", "--output_dir",
@@ -57,9 +61,11 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--noise-scale", "--noise_scale", type=float)
     parser.add_argument("--noise-w", "--noise_w", type=float)
     parser.add_argument("--sentence-silence", "--sentence_silence", type=float, default=0.0)
-    parser.add_argument("--precision", choices=["parity", "fast"], default="fast")
-    parser.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
-                        help="cuda (default) or cpu; never chosen for you")
+    parser.add_argument(
+        "--pack-total", "--pack_total", choices=["quantum", "pow2"], default=None,
+        help="accepted for the JAX package's CLI and has no effect: it sizes XLA's packed "
+             "transfers there, and the port compiles no such shapes",
+    )
     parser.add_argument(
         "--decode-grouping", "--decode_grouping",
         choices=["bucketed", "uniform", "packed"], default=None,
@@ -73,11 +79,73 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
+def add_voice_arguments(parser: argparse.ArgumentParser) -> None:
+    """The flags load_voice reads (shared with the HTTP server and the
+    benchmark CLI)."""
+    parser.add_argument(
+        "-m", "--model", required=True,
+        help="Path to a voice (.onnx, .ckpt or .npz) or a voice name of the registry",
+    )
+    parser.add_argument("-c", "--config", help="Path to the voice JSON config")
+    parser.add_argument("--data-dir", "--data_dir", action="append", default=[str(Path.cwd())],
+                        help="Directory searched for a named voice's files (repeatable; "
+                             "default: the working directory)")
+    parser.add_argument("--download-dir", "--download_dir",
+                        help="Directory a named voice's missing files are downloaded to "
+                             "(default: the first --data-dir)")
+    parser.add_argument("--update-voices", action="store_true",
+                        help="Download a fresh voices.json registry")
+    parser.add_argument("--precision", choices=["parity", "fast"], default="fast")
+    parser.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                        help="cuda (default) or cpu; never chosen for you")
+
+
 def load_voice(args) -> TorchVoice:
-    """The voice the parsed arguments name (shared with the HTTP server)."""
+    """The voice the parsed arguments name (shared with the HTTP server
+    and the benchmark CLI). A -m that is not a file is a voice name:
+    resolved with its aliases through the registry (the embedded
+    snapshot unless --update-voices or a cached voices.json), its files
+    checked by size and md5 in the data dirs and downloaded only when
+    missing or corrupt (piper_tpu/__main__.py:92-133), then found under
+    the voice's key."""
+    if not Path(args.model).exists():
+        from urllib.error import URLError
+
+        from .runtime.download import (
+            VoiceNotFoundError,
+            ensure_voice_exists,
+            find_voice,
+            get_voices,
+        )
+
+        download_dir = args.download_dir or args.data_dir[0]
+        try:
+            voices_info = get_voices(download_dir, update_voices=args.update_voices)
+            aliases: Dict[str, Any] = {}
+            for vi in voices_info.values():
+                for alias in vi.get("aliases", []):
+                    aliases[alias] = {"_is_alias": True, **vi}
+            voices_info.update(aliases)
+            ensure_voice_exists(args.model, args.data_dir, download_dir, voices_info)
+            # an alias's files carry the voice's key (the JAX package
+            # looks them up under the alias, and misses them)
+            key = voices_info[args.model].get("key", args.model)
+            args.model, args.config = find_voice(key, args.data_dir)
+        except VoiceNotFoundError:
+            raise SystemExit(
+                f"Voice '{args.model}' is not a local file and is not in "
+                "the voices.json registry. Check the name or pass a path "
+                "to a .npz/.ckpt/.onnx voice."
+            )
+        except (URLError, OSError) as e:
+            raise SystemExit(
+                f"Voice '{args.model}' is not a local file and the voice "
+                f"registry could not be reached ({e}). Pass a path to a "
+                "local voice, or place voices.json in the download dir."
+            )
     return TorchVoice.load(
         args.model, args.config, precision=args.precision, device=args.device,
-        decode_grouping=args.decode_grouping or "bucketed",
+        decode_grouping=getattr(args, "decode_grouping", None) or "bucketed",
     )
 
 

@@ -11,8 +11,12 @@ throughput (audio-seconds/s per card) beside the per-utterance RTF, and
 CUDA unless --device cpu is given (and raises without a GPU); every
 timing ends when the audio is on the host.
 
+-m takes what the CLI's -m takes (.onnx, .ckpt, .npz or a registry
+voice name, with --data-dir, --download-dir and --update-voices).
+
 Usage:
   python -m piper_tpu_torch.benchmark -m voice.npz < test_en-us.jsonl
+  python -m piper_tpu_torch.benchmark -m en_US-lessac-medium < test_en-us.jsonl
   python -m piper_tpu_torch.benchmark -m voice.npz --device cpu --batch < in.jsonl
 """
 
@@ -40,25 +44,21 @@ def warm(voice, utterances: List[List[int]], syn) -> None:
 
 
 def main(argv=None) -> None:
+    from .__main__ import add_voice_arguments, load_voice
+
     p = argparse.ArgumentParser(prog="piper_tpu_torch.benchmark")
-    p.add_argument("-m", "--model", required=True)
-    p.add_argument("-c", "--config")
-    p.add_argument("--precision", choices=("fast", "parity"), default="fast")
+    add_voice_arguments(p)
     p.add_argument("--batch", action="store_true",
                    help="Also measure batched throughput")
     p.add_argument("--repeat", type=int, default=1,
                    help="Timing repetitions (after warmup)")
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
-                   help="cuda (default) or cpu; never chosen for you")
     args = p.parse_args(argv)
 
     from .config import SynthesisConfig
-    from .runtime.voice import TorchVoice
 
     start = time.perf_counter()
-    voice = TorchVoice.load(args.model, args.config, precision=args.precision,
-                            device=args.device)
+    voice = load_voice(args)
     load_sec = time.perf_counter() - start
 
     utterances: List[List[int]] = []

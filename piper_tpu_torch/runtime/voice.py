@@ -14,7 +14,8 @@ mu-law wire or long-form windows. A batch of id sequences runs as
      (batching.plan_decode_groups: bucketed, uniform or packed), each
      decode at its frame bucket: prior expansion and frame noise
      eagerly, the reverse flow as one graph replay per (frame bucket,
-     power-of-two rows), the time-major HiFiGAN through the CUDA kernels
+     power-of-two rows) (parity: one per row, at its own frame bucket
+     and 1 row), the time-major HiFiGAN through the CUDA kernels
      (ops/cuda/vocoder.py) eagerly at the decode's longest row, since
      its row stages take each row's length on the host;
   4. conversion to int16 on the device (fast) or float32 (parity), and
@@ -43,9 +44,10 @@ it rides in nor on the frame count it is decoded at (the two properties
 of voice.py:262-331). Noise is drawn on the host with torch's CPU
 generator and copied to the device, so the CPU and the card see the same
 numbers. A row's bits are its solo bits in either precision: the
-encodes run at one row count (ENCODE_ROWS), the flow keeps a row's bits
-at any shape, and conv_pre and the generator's plain stages run row by
-row (PERF.md).
+encodes run at one row count (ENCODE_ROWS), parity runs the flow row by
+row at each row's own frame bucket (fast's bf16 flow has kept a row's
+bits over a decode's rows in every check on the card), and conv_pre and
+the generator's plain stages run row by row (PERF.md).
 """
 
 from __future__ import annotations
@@ -69,6 +71,8 @@ from ..text.phonemes import phonemes_to_ids
 from ..text.phonemize import phonemize
 from ..weights.bridge import params_from_jax
 from ..weights.native import load_native
+from ..weights.onnx_loader import load_onnx_voice
+from ..weights.torch_loader import load_torch_checkpoint
 from . import batching
 from .graphs import GraphCache
 from .wav import audio_float_to_int16, int16_to_float
@@ -243,20 +247,28 @@ class TorchVoice:
         config_path: Optional[Union[str, Path]] = None,
         **kw,
     ) -> "TorchVoice":
-        """Load a native .npz voice with its JSON config sidecar
-        (`<model>.json` or `<model stem>.json` by default)."""
+        """Load a voice from a .ckpt (piper_train Lightning checkpoint),
+        .onnx (exported piper voice) or .npz (native) file with its JSON
+        config sidecar: `<model><suffix>.json`, else `<model stem>.json`
+        (TpuVoice.load's rules, piper_tpu/runtime/voice.py:817-852;
+        reference: voice.py:24-55). A .ckpt's architecture comes from its
+        hyper_parameters, an .onnx's from its tensors over the sidecar's
+        preset, an .npz's from the config it embeds."""
         model_path = Path(model_path)
-        if model_path.suffix.lower() != ".npz":
-            raise ValueError(
-                f"unsupported voice format: {model_path} (this slice of the "
-                "port loads native .npz voices; .onnx and .ckpt come later)"
-            )
+        suffix = model_path.suffix.lower()
+        if suffix not in (".ckpt", ".onnx", ".npz"):
+            raise ValueError(f"unsupported voice format: {model_path} (.ckpt, .onnx or .npz)")
         if config_path is None:
             config_path = model_path.with_suffix(model_path.suffix + ".json")
             if not config_path.exists():
                 config_path = model_path.with_suffix(".json")
         config = VoiceConfig.from_file(config_path)
-        params, model_cfg = load_native(str(model_path))
+        if suffix == ".ckpt":
+            params, model_cfg = load_torch_checkpoint(str(model_path))
+        elif suffix == ".onnx":
+            params, model_cfg = load_onnx_voice(str(model_path), config.model_config())
+        else:
+            params, model_cfg = load_native(str(model_path))
         return cls(params, model_cfg, config, **kw)
 
     @classmethod
@@ -398,10 +410,23 @@ class TorchVoice:
             syn.noise_w if syn.noise_w is not None else inf.noise_w,
         )
 
-    def _speaker(self, syn: SynthesisConfig, b: int) -> Optional[torch.Tensor]:
-        if self.model_cfg.num_speakers <= 1:
+    def speaker_id(self, syn: SynthesisConfig) -> Optional[int]:
+        """The request's speaker (0 when it names none), None for a
+        single-speaker voice. Checked on the host: on the card an
+        embedding row out of range is a device-side assert that ends
+        the process's CUDA context, where JAX's gather clamps."""
+        n = self.model_cfg.num_speakers
+        if n <= 1:
             return None
         spk = syn.speaker_id if syn.speaker_id is not None else 0
+        if not 0 <= spk < n:
+            raise ValueError(f"speaker_id {spk} out of range: this voice has {n} speakers")
+        return spk
+
+    def _speaker(self, syn: SynthesisConfig, b: int) -> Optional[torch.Tensor]:
+        spk = self.speaker_id(syn)
+        if spk is None:
+            return None
         return torch.full((b,), spk, dtype=torch.long, device=self.device)
 
     def _host_zeros(self, shape, dtype=torch.float32) -> torch.Tensor:
@@ -435,6 +460,21 @@ class TorchVoice:
         key = ("flow", z_p.shape[1], z_p.shape[0], self.dtype, sid is not None)
         return self.graphs.run(key, self._flow_step, (z_p, y_mask, sid))[0]
 
+    def _flow_rows(self, z_p, y_mask, sid, frames: Sequence[int]) -> torch.Tensor:
+        """Parity's reverse flow: each row alone at the frame bucket it
+        decodes at alone (its own frame count past the ladder). Over a
+        decode's rows at the decode's bucket, cuBLAS and cuDNN pick their
+        float32 algorithms by the rows and the bucket, and a row of a
+        trained voice moved against the same row alone (PERF.md)."""
+        z = torch.zeros_like(z_p)
+        top = self.frame_buckets[-1]
+        for row, f in enumerate(frames):
+            fb = batching.pick_bucket(f, self.frame_buckets) if f <= top else f
+            z[row, :fb] = self._flow(
+                z_p[row : row + 1, :fb], y_mask[row : row + 1, :fb], None if sid is None else sid[:1]
+            )[0]
+        return z
+
     def _encode(self, rows_ids, keys, bucket: int, syn: SynthesisConfig):
         """Encode rows padded to `bucket`, each with its own duration
         noise, as graph replays at (bucket, ENCODE_ROWS): the rows in
@@ -461,9 +501,10 @@ class TorchVoice:
                 scales = self._host_zeros((2,))
                 scales[0], scales[1] = noise_w, length_scale
                 sid = None
-                if self.model_cfg.num_speakers > 1:
+                spk = self.speaker_id(syn)
+                if spk is not None:
                     sid = self._host_zeros((ENCODE_ROWS,), torch.long)
-                    sid[:] = syn.speaker_id if syn.speaker_id is not None else 0
+                    sid[:] = spk
             with self._span("encode"):
                 key = ("encode", bucket, ENCODE_ROWS, self.dtype, sid is not None)
                 inputs = (ids_arr, lengths, dur_noise, scales, sid)
@@ -528,10 +569,10 @@ class TorchVoice:
         for (indices, rkeys, enc, _), frames in zip(groups, counts):
             for fbucket, members in self._plan_decode_groups(frames):
                 n = len(members)
-                # a decode on the ladder runs its flow as a graph at
+                # fast runs a decode's flow on the ladder as one graph at
                 # round_rows(n) rows: pad rows repeat the first row
-                graph = fbucket <= self.frame_buckets[-1]
-                padded = members + members[:1] * (batching.round_rows(n) - n if graph else 0)
+                batched = self.precision == "fast" and fbucket <= self.frame_buckets[-1]
+                padded = members + members[:1] * (batching.round_rows(n) - n if batched else 0)
                 if padded != list(range(len(indices))):
                     sel = torch.tensor(padded, pin_memory=self.device.type == "cuda")
                     sel = sel.to(self.device, non_blocking=True)
@@ -543,7 +584,10 @@ class TorchVoice:
                                             gframes)
                 with self._span("decode"):
                     sid = self._speaker(syn, len(padded))
-                    z = self._flow(z_p, y_mask, sid)
+                    if batched:
+                        z = self._flow(z_p, y_mask, sid)
+                    else:
+                        z = self._flow_rows(z_p, y_mask, sid, gframes)
                     g = M.speaker_embedding(self.params, self.model_cfg,
                                             None if sid is None else sid[:n])
                     # the eager generator runs at the longest row, not at
@@ -694,7 +738,8 @@ class TorchVoice:
         """Build the kernels (on CUDA), capture the encode graph of every
         phoneme bucket and the streaming chunk's graph (runtime/graphs.py).
         With `full`, also the flow graphs of every frame bucket at every
-        power-of-two row count up to the largest batch size's, and run
+        power-of-two row count up to the largest batch size's (parity: at
+        1 row, the only count its row-by-row flow runs), and run
         one whole batch (encode, decode, copy to the host) per
         power-of-two row count up to the largest batch size, at this
         voice's device and dtype: the allocator's blocks, cuDNN's and
@@ -721,6 +766,7 @@ class TorchVoice:
         if not full:
             return
         c = self.model_cfg.inter_channels
+        flow_rows = b_max if self.precision == "fast" else 1
         with torch.inference_mode():
             for fb in self.frame_buckets:
                 b = 1
@@ -728,7 +774,7 @@ class TorchVoice:
                     z = torch.zeros((b, fb, c), dtype=self.dtype, device=self.device)
                     for _ in range(2):
                         self._flow(z, z[..., :1], self._speaker(syn, b))
-                    if b >= b_max:
+                    if b >= flow_rows:
                         break
                     b *= 2
         rows = 1

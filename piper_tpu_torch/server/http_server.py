@@ -5,7 +5,8 @@ GET or POST `/` with `text` (query parameter, form body, or raw/JSON
 body) returns a WAV, with the real-time factor in `X-RTF`. Optional
 query parameters: speaker_id (or speaker), length_scale, noise_scale,
 noise_w, sentence_silence, seed, and for the admission queue priority
-and deadline_ms.
+and deadline_ms; a parameter that does not parse, or a speaker_id the
+voice does not have, is answered with 400.
 
 Endpoints beyond the reference:
   POST /batch  - JSON {"texts": [...]} -> JSON {"wavs": [base64 WAV, ...]}
@@ -105,7 +106,17 @@ def make_handler(
                 syn.priority = int(query["priority"][0])
             if "deadline_ms" in query:
                 syn.deadline_s = float(query["deadline_ms"][0]) / 1000.0
+            voice.speaker_id(syn)  # raises for a speaker the voice lacks
             return syn
+
+        def _request_syn(self, query) -> Optional[SynthesisConfig]:
+            """The request's SynthesisConfig, or None after answering 400
+            for a parameter that does not parse or a speaker out of range."""
+            try:
+                return self._syn_from_query(query)
+            except ValueError as e:
+                self.send_error(400, str(e))
+                return None
 
         def _respond_wav(self, text: str, syn: SynthesisConfig):
             if not text.strip():
@@ -143,14 +154,18 @@ def make_handler(
                 }
                 self._send(200, "application/json", json.dumps(body).encode())
             else:
-                self._respond_wav(query.get("text", [""])[0], self._syn_from_query(query))
+                syn = self._request_syn(query)
+                if syn is not None:
+                    self._respond_wav(query.get("text", [""])[0], syn)
 
         def _stream(self, query):
             text = query.get("text", [""])[0]
             if not text.strip():
                 self.send_error(400, "no text provided")
                 return
-            syn = self._syn_from_query(query)
+            syn = self._request_syn(query)
+            if syn is None:
+                return
             fmt = query.get("format", ["s16le"])[0]
             if fmt not in RAW_FORMATS:
                 self.send_error(400, f"unknown format {fmt!r} (one of {RAW_FORMATS})")
@@ -209,13 +224,16 @@ def make_handler(
                     for sentence in voice.phonemize(text):
                         ids.extend(voice.phonemes_to_ids(sentence))
                     ids_list.append(ids)
+                syn = self._request_syn(query)
+                if syn is None:
+                    return
                 batch_fn = (
                     voice.batcher.synthesize_ids_batch
                     if voice.batcher is not None
                     else voice.synthesize_ids_batch
                 )
                 try:
-                    audios = batch_fn(ids_list, syn=self._syn_from_query(query))
+                    audios = batch_fn(ids_list, syn=syn)
                 except DeadlineExceeded as e:
                     self.send_error(503, str(e))
                     return
@@ -238,7 +256,9 @@ def make_handler(
             else:
                 text = body.decode("utf-8")
             text = query.get("text", [text])[0]
-            self._respond_wav(text, self._syn_from_query(query))
+            syn = self._request_syn(query)
+            if syn is not None:
+                self._respond_wav(text, syn)
 
     return Handler
 

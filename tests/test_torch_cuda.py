@@ -501,3 +501,83 @@ def test_streams_and_coalesced_batches_at_once_on_card(medium):
     for i, runs in enumerate(got_streams):
         assert all(r == alone_streams[i] for r in runs), i
     assert all(b == alone_batch for b in got_batches)
+
+
+@pytest.fixture(scope="module")
+def medium_files(medium, tmp_path_factory):
+    """The medium voice as .npz, as .onnx written by the JAX package's
+    exporter (numpy only: piper_tpu.onnx_io imports no JAX) and as a
+    Lightning .ckpt from the port's state_dict_from_params, each with the
+    same JSON sidecar."""
+    import dataclasses
+    import json
+
+    from piper_tpu.config import ModelConfig as JModelConfig
+    from piper_tpu.onnx_io import export_onnx_voice
+    from piper_tpu_torch.weights.native import save_native
+    from piper_tpu_torch.weights.torch_export import state_dict_from_params
+
+    cfg, params, vcfg = medium
+    d = tmp_path_factory.mktemp("medium_files")
+    save_native(str(d / "voice.npz"), params, cfg)
+    export_onnx_voice(params, JModelConfig.for_quality("medium", num_symbols=256), str(d / "voice.onnx"))
+    hp = {k: v for k, v in dataclasses.asdict(cfg).items() if k != "audio"}
+    torch.save({"state_dict": {"model_g." + k: torch.from_numpy(v)
+                               for k, v in state_dict_from_params(params, cfg).items()},
+                "hyper_parameters": hp}, d / "voice.ckpt")
+    for ext in ("npz", "onnx", "ckpt"):
+        (d / f"voice.{ext}.json").write_text(json.dumps(vcfg.to_dict()))
+    return d
+
+
+@pytest.mark.parametrize("precision", ["fast", "parity"])
+@pytest.mark.parametrize("fmt", ["onnx", "ckpt"])
+def test_loaded_voice_gives_the_npz_bytes_on_card(medium_files, fmt, precision):
+    """A medium voice loaded from .onnx (the JAX package's export) or
+    .ckpt on the card gives the bytes of the same weights loaded from
+    .npz: the loaders change nothing after the weights are read, and the
+    decodes run through both kernels."""
+    from piper_tpu_torch.config import SynthesisConfig
+    from piper_tpu_torch.runtime.voice import TorchVoice
+
+    rows = [_long_ids(n) for n in (12, 60, 130)]
+    out = {}
+    for ext in ("npz", fmt):
+        voice = TorchVoice.load(medium_files / f"voice.{ext}", precision=precision, seed=0)
+        n0 = V.mrf_fused.launches
+        out[ext] = [a.tobytes() for a in voice.synthesize_ids_batch(rows, syn=SynthesisConfig(seed=6))]
+        assert V.mrf_fused.launches > n0
+    assert all(len(a) > 0 for a in out["npz"]) and out[fmt] == out["npz"]
+
+
+@pytest.mark.parametrize("precision", ["fast", "parity"])
+def test_coalesced_speaker_rows_equal_solo_rows_on_card(dev, precision):
+    """The trained two-speaker x-low voice: 16 rows of one speaker in one
+    submit give each row's solo audio bit for bit, for either speaker, in
+    both precisions. Parity runs the flow row by row at each row's own
+    frame bucket: over a decode's rows at the decode's bucket, a trained
+    voice's rows moved by up to 3.3e-6 against the row alone
+    (tools/row_invariance.py --voice; chip_smoke.py's two-speaker window
+    had 4 and 17 of 64 parity responses equal to the request alone)."""
+    from pathlib import Path
+
+    import numpy as np
+
+    from piper_tpu_torch.config import SynthesisConfig
+    from piper_tpu_torch.runtime.voice import TorchVoice, random_voice_config
+    from piper_tpu_torch.weights.native import load_native
+
+    tree, cfg = load_native(str(Path(__file__).parent / "data" / "voice_xlow_ms2_trained_fp16.npz"))
+    voice = TorchVoice(tree, cfg, random_voice_config(cfg), precision=precision, device="cuda", seed=0)
+    g = torch.Generator().manual_seed(7)
+    rows = [[1, 0] + [int(x) for s in torch.randint(3, cfg.num_symbols, (n,), generator=g) for x in (s, 0)]
+            + [2] for n in (5, 23, 40, 61, 90, 12, 14, 77, 33, 8, 101, 47, 66, 19, 30, 55)]
+    seeds = list(range(16))
+    outs = {}
+    for spk in (0, 1):
+        together = voice.collect(voice.submit(rows, syn=SynthesisConfig(speaker_id=spk), row_seeds=seeds))
+        for i, (row, seed) in enumerate(zip(rows, seeds)):
+            alone = voice.synthesize_ids_batch([row], syn=SynthesisConfig(seed=seed, speaker_id=spk))[0]
+            np.testing.assert_array_equal(together[i], alone, err_msg=f"speaker {spk}, row {i}")
+        outs[spk] = together
+    assert any(len(a) != len(b) or not np.array_equal(a, b) for a, b in zip(outs[0], outs[1]))

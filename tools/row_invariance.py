@@ -17,6 +17,15 @@ at PyTorch's defaults and with both off (as a TorchVoice leaves them): the int16
 and the device time of the batch (torch.profiler, the sum of kernel
 time), in turns A B B A.
 
+Part 3, with --voice (a native .npz voice, e.g. the trained
+two-speaker tests/data/voice_xlow_ms2_trained_fp16.npz): the voice's
+own stages (encode: m_p, logs_p, durations; latents z_p; the reverse
+flow; the generator's audio) on one coalesced submit of the 16 rows
+against each row submitted alone, in both precisions, for --speaker
+(and Part 1 on that voice with the speaker's embedding in every layer
+it conditions). 0 means the stage keeps a row's bits. With it, the
+wall of the 16-row submit five times (the first two capture graphs).
+
 Prints one JSON line per part. Runs on CUDA unless --device cpu.
 """
 
@@ -37,30 +46,33 @@ from piper_tpu_torch.config import ModelConfig, SynthesisConfig  # noqa: E402
 from piper_tpu_torch.models.vits import duration as D  # noqa: E402
 from piper_tpu_torch.models.vits import encoder as E  # noqa: E402
 from piper_tpu_torch.models.vits import flow as F  # noqa: E402
-from piper_tpu_torch.models.vits import layers as L  # noqa: E402
+from piper_tpu_torch.models.vits import generator as G  # noqa: E402
+from piper_tpu_torch.models.vits import model as M  # noqa: E402
 from piper_tpu_torch.models.vits.model import init_synthesizer_params  # noqa: E402
 from piper_tpu_torch.ops import nn as tnn  # noqa: E402
 from piper_tpu_torch.runtime import batching  # noqa: E402
 from piper_tpu_torch.runtime.voice import (  # noqa: E402
-    TorchVoice, random_voice_config, resolve_device, tf32_off,
+    TorchVoice, random_voice_config, resolve_device, tf32_off, utterance_seed,
 )
+from piper_tpu_torch.weights.native import load_native  # noqa: E402
 
 LENGTHS = (5, 23, 40, 61, 90, 120, 14, 77, 33, 8, 101, 47, 66, 19, 130, 55)
 
 
-def _ids(n: int):
+def _ids(n: int, num_symbols: int = 256):
     g = torch.Generator().manual_seed(n)
-    return [1, 0] + [int(x) for s in torch.randint(3, 256, (n,), generator=g) for x in (s, 0)] + [2]
+    return [1, 0] + [int(x) for s in torch.randint(3, num_symbols, (n,), generator=g) for x in (s, 0)] + [2]
 
 
 def _max_diff(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
 
 
-def layer_diffs(voice: TorchVoice) -> dict:
-    """Largest |row in group - row alone| per layer over every group."""
+def layer_diffs(voice: TorchVoice, speaker=None) -> dict:
+    """Largest |row in group - row alone| per layer over every group
+    (with `speaker`, each layer conditioned on its embedding)."""
     cfg, p, dt, dev = voice.model_cfg, voice.params, voice.dtype, voice.device
-    rows = [_ids(n) for n in LENGTHS]
+    rows = [_ids(n, cfg.num_symbols) for n in LENGTHS]
     gen = torch.Generator().manual_seed(0)
     out = {k: 0.0 for k in ("text_encoder", "duration", "flow", "flow_group_length",
                             "conv_pre", "conv_pre_group_length")}
@@ -75,36 +87,98 @@ def layer_diffs(voice: TorchVoice) -> dict:
                 ids[j, : len(rows[i])] = torch.tensor(rows[i])
             lens = torch.tensor([len(rows[i]) for i in idx])
             ids, lens = ids.to(dev), lens.to(dev)
+            g = None if speaker is None else M.speaker_embedding(
+                p, cfg, torch.full((b,), speaker, dtype=torch.long, device=dev))
             x_mask = tnn.sequence_mask(lens, bucket).to(dt)
-            x, m_p, _ = E.text_encoder_apply(p["enc_p"], ids, x_mask, cfg=cfg, dtype=dt)
+            x, m_p, _ = E.text_encoder_apply(p["enc_p"], ids, x_mask, cfg=cfg, dtype=dt, g=g)
             noise = torch.randn((b, bucket, 2), generator=gen).to(dev)
-            logw = D.sdp_reverse(p["dp"], x, x_mask, cfg=cfg, noise_w=0.8, noise=noise, dtype=dt)
+            logw = D.sdp_reverse(p["dp"], x, x_mask, cfg=cfg, noise_w=0.8, noise=noise, dtype=dt, g=g)
             # frame-level layers: rows of 3x their ids' length in frames
             frames = [3 * len(rows[i]) for i in idx]
             t = max(frames)
             f_mask = (torch.arange(t)[None, :] < torch.tensor(frames)[:, None])[..., None]
             z = (torch.randn((b, t, cfg.inter_channels), generator=gen) * f_mask).to(dev, dt)
             f_mask = f_mask.to(dev, dt)
-            zf = F.flow_apply(p["flow"], z, f_mask, cfg=cfg, reverse=True)
-            pre = L.conv(p["dec"]["conv_pre"], zf * f_mask, padding=3)
+            zf = F.flow_apply(p["flow"], z, f_mask, cfg=cfg, reverse=True, g=g)
+            pre = G._conv_pre(p["dec"], zf * f_mask, g)
             for j in range(b):
+                gj = None if g is None else g[j : j + 1]
                 n_ids = int(lens[j])
                 xj, mj, _ = E.text_encoder_apply(p["enc_p"], ids[j : j + 1], x_mask[j : j + 1],
-                                                 cfg=cfg, dtype=dt)
+                                                 cfg=cfg, dtype=dt, g=gj)
                 out["text_encoder"] = max(out["text_encoder"], _max_diff(mj[0, :n_ids], m_p[j, :n_ids]))
                 lj = D.sdp_reverse(p["dp"], x[j : j + 1], x_mask[j : j + 1], cfg=cfg, noise_w=0.8,
-                                   noise=noise[j : j + 1], dtype=dt)
+                                   noise=noise[j : j + 1], dtype=dt, g=gj)
                 out["duration"] = max(out["duration"], _max_diff(lj[0, :n_ids], logw[j, :n_ids]))
                 n = frames[j]
                 for key, width in (("flow", n), ("flow_group_length", t)):
                     zj = F.flow_apply(p["flow"], z[j : j + 1, :width], f_mask[j : j + 1, :width],
-                                      cfg=cfg, reverse=True)
+                                      cfg=cfg, reverse=True, g=gj)
                     out[key] = max(out[key], _max_diff(zj[0, :n], zf[j, :n]))
                     # conv_pre on the group's flow output: this layer alone
-                    pj = L.conv(p["dec"]["conv_pre"], (zf * f_mask)[j : j + 1, :width], padding=3)
+                    pj = G._conv_pre(p["dec"], (zf * f_mask)[j : j + 1, :width], gj)
                     ckey = key.replace("flow", "conv_pre")
                     out[ckey] = max(out[ckey], _max_diff(pj[0, :n], pre[j, :n]))
     return out
+
+
+def stage_diffs(voice: TorchVoice, speaker=None) -> dict:
+    """Largest |row in one coalesced submit - row submitted alone| per
+    stage of the voice's own path: each stage's per-row output is
+    recorded by the row's noise key, on the batch and on each solo run."""
+    cfg = voice.model_cfg
+    rows = [_ids(n, cfg.num_symbols) for n in LENGTHS]
+    seeds = list(range(len(rows)))
+    rec, decode_rows = {}, []
+    encode, latents, generate = voice._encode, voice._latents, M.synthesizer_generate
+
+    def put(stage, key, t):
+        rec[(stage, key)] = t.float().cpu()
+
+    def rec_encode(rows_ids, keys, bucket, syn):
+        enc, frames = encode(rows_ids, keys, bucket, syn)
+        for j, key in enumerate(keys):
+            n = len(rows_ids[j])
+            for stage, t in (("m_p", enc.m_p), ("logs_p", enc.logs_p), ("durations", enc.durations)):
+                put(stage, key, t[j, :n])
+        return enc, frames
+
+    def rec_latents(enc, keys, num_frames, syn, frames=None):
+        z_p, y_mask = latents(enc, keys, num_frames, syn, frames)
+        decode_rows[:] = list(zip(keys, frames or [num_frames] * len(keys)))
+        for j, (key, f) in enumerate(decode_rows):
+            put("z_p", key, z_p[j, :f])
+        return z_p, y_mask
+
+    def rec_generate(params, z, *a, **k):
+        audio = generate(params, z, *a, **k)
+        for j, (key, f) in enumerate(decode_rows):
+            put("flow", key, z[j, :f])  # the generator's input
+            put("audio", key, audio[j, : f * cfg.upsample_factor])
+        return audio
+
+    syn = SynthesisConfig(speaker_id=speaker)
+    walls = []
+    for _ in range(5):  # the first two capture the graphs, the rest replay
+        t0 = time.perf_counter()
+        voice.collect(voice.submit(rows, syn=syn, row_seeds=seeds))
+        walls.append((time.perf_counter() - t0) * 1e3)
+    voice._encode, voice._latents = rec_encode, rec_latents
+    M.synthesizer_generate = rec_generate
+    try:
+        voice.collect(voice.submit(rows, syn=syn, row_seeds=seeds))
+        together, rec = rec, {}
+        for row, seed in zip(rows, seeds):
+            voice.synthesize_ids_batch([row], syn=SynthesisConfig(seed=seed, speaker_id=speaker))
+    finally:
+        del voice._encode, voice._latents
+        M.synthesizer_generate = generate
+    out = {}
+    for (stage, key), t in together.items():
+        alone = rec[(stage, key)]
+        d = _max_diff(t, alone) if t.shape == alone.shape else float("inf")
+        out[stage] = max(out.get(stage, 0.0), d)
+    return {"max_abs_diff": out, "batch_wall_ms": walls}
 
 
 def tf32_cost(voice: TorchVoice, reps: int = 3) -> dict:
@@ -143,8 +217,24 @@ def main(argv=None) -> None:
     ap.add_argument("--quality", default="medium")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--voice", help="a native .npz voice: Part 1 and Part 3 on it, no Part 2")
+    ap.add_argument("--speaker", type=int, default=1, help="the speaker of --voice's rows")
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
+    if args.voice:
+        params, cfg = load_native(args.voice)
+        name = torch.cuda.get_device_name(0) if dev.type == "cuda" else "cpu"
+        speaker = args.speaker if cfg.num_speakers > 1 else None
+        for precision in ("parity", "fast"):
+            voice = TorchVoice(params, cfg, random_voice_config(cfg), precision=precision,
+                               device=dev, seed=0)
+            print(json.dumps({"part": "layers", "voice": args.voice, "speaker": speaker,
+                              "precision": precision, "device": name,
+                              "max_abs_diff": layer_diffs(voice, speaker)}), flush=True)
+            print(json.dumps({"part": "stages", "voice": args.voice, "speaker": speaker,
+                              "precision": precision, "device": name,
+                              **stage_diffs(voice, speaker)}), flush=True)
+        return
     cfg = ModelConfig.for_quality(args.quality, num_symbols=256)
     params = init_synthesizer_params(2, cfg)
     name = torch.cuda.get_device_name(0) if dev.type == "cuda" else "cpu"
