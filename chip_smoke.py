@@ -51,7 +51,24 @@ Phases (any failure makes the exit code non-zero):
      one medium row of ~12,000 frames (past the 4096-frame ladder) in
      both precisions (full length, one decode, peak memory, wall), and
      both kernels against their plain versions at B = 1 and its length;
-  6. one JSON line of per-kernel numbers, then the device line.
+  6. VITS2 and MB-iSTFT voices at the medium preset's full width, written
+     as .npz through the port's init_synthesizer_params and save_native:
+     a two-speaker VITS2 voice (flow_transformer and speaker_cond_encoder;
+     its flows' zero-initialised post perturbed, or the flow's attention
+     would change nothing) and a one-speaker MB-iSTFT voice. For each:
+     python -m piper_tpu_torch -m voice.npz --batch --seed 1 (WAV checks,
+     same bytes twice, one mrf_fused and two fused_upsample_mrf launches
+     per decode for VITS2, none for MB-iSTFT, whose generator runs every
+     op on the card), the card against the port on the CPU in parity
+     (1e-3), the server with the batcher in both precisions after
+     warmup((1, 16), full=True) (64 GETs from 8 clients, each equal to
+     the request alone; VITS2: speaker_id alternating, the speakers
+     differ), each graph kind's replay against its eager run, a parity
+     /stream against the port's CPU chunks (1e-3; the seams printed as an
+     observation), and a warm 16-row batch's device time beside phase 3's
+     HiFiGAN voice's;
+  7. one JSON line of per-kernel numbers (launches summed over the CLI
+     main paths of phases 3 and 6), then the device line.
 
 Needs one CUDA card; prints no result and exits non-zero without one.
 
@@ -475,8 +492,7 @@ def phase_main_path(tmp: Path, cfg, params_np, card: str):
     print(f"warm batch, fast, 16 rows x {min(frames_per_row)}-{max(frames_per_row)} frames "
           f"({audio_s:.2f} audio-s): wall {sorted(times)} s, best {best:.4f} s, "
           f"{audio_s / best:.1f} audio-s/s, RTF {best / audio_s:.5f}  [{card}]", flush=True)
-    profile_batch(fast, rows)
-    return launches
+    return launches, profile_batch(fast, rows)
 
 
 def _voice_cfg(cfg):
@@ -492,7 +508,8 @@ def _syn(seed):
 
 
 def profile_batch(voice, rows):
-    """Device time by kernel over one warm batch (torch.profiler)."""
+    """Device time by kernel over one warm batch (torch.profiler);
+    returns the device ms."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -506,6 +523,7 @@ def profile_batch(voice, rows):
           f"{dev_total:.2f} ms ({100 * dev_total / (wall * 1e3):.1f}% of wall)")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<4d} {e.key[:90]}")
+    return dev_total
 
 
 # ---------------------------------------------------------------------------
@@ -689,7 +707,7 @@ def check_graphs(voice) -> None:
                 enumerate((12, 20, 26, 50, 61))]
         voice.synthesize_ids_batch(rows, syn=_syn(seed=5))
         g = torch.Generator().manual_seed(2)
-        z_p = torch.randn((1, 130, voice.model_cfg.inter_channels), generator=g).to("cuda", voice.dtype)
+        z_p = torch.randn((1, 130, voice.model_cfg.inter_channels), generator=g).to(voice.device, voice.dtype)
         list(StreamingDecoder(voice).stream(z_p, 130))
     finally:
         voice.graphs.run = run
@@ -701,7 +719,8 @@ def check_graphs(voice) -> None:
     kinds = sorted({key[0] for key, *_ in calls})
     check(kinds == ["chunk", "encode", "flow"] and same == len(calls),
           f"CUDA graph replay equals eager execution bit for bit: {same} of {len(calls)} replays "
-          f"({', '.join(kinds)})")
+          f"({', '.join(kinds)}; {voice.model_cfg.vocoder}"
+          f"{', VITS2' if voice.model_cfg.flow_transformer else ''}, {voice.precision})")
 
 
 def phase_benchmark(tmp: Path, card: str) -> None:
@@ -1261,6 +1280,352 @@ def phase_long_row(cfg, params_np, card: str, peaks) -> None:
     phase_kernels(cfg, params_np, peaks, frames=(frames,))
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: VITS2 and MB-iSTFT voices at the medium preset's full width
+# ---------------------------------------------------------------------------
+
+STREAM_TEXT_SHORT = "Streaming on the card, in two chunks."
+POST_SCALE = 0.02  # std of the noise added to VITS2's zero-initialised flow post
+
+
+def write_variant_voices(out: Path):
+    """The two random-weight medium voices of phase 6, written through
+    the port's init_synthesizer_params and save_native as
+    <name>.npz + <name>.npz.json: a two-speaker VITS2 voice
+    (ModelConfig.vits2: flow_transformer and speaker_cond_encoder), its
+    flows' `post` perturbed (zero-initialised, it would make the flow's
+    attention change nothing), and a one-speaker MB-iSTFT voice
+    (ModelConfig.mb_istft). Returns {name: (path, cfg, params)}."""
+    import numpy as np
+
+    from piper_tpu_torch.config import ModelConfig
+    from piper_tpu_torch.models.vits.model import init_synthesizer_params
+    from piper_tpu_torch.runtime.voice import random_voice_config
+    from piper_tpu_torch.weights.native import save_native
+
+    out.mkdir(parents=True, exist_ok=True)
+    voices = {}
+    for seed, (name, cfg) in enumerate((
+        ("vits2", ModelConfig.vits2("medium", num_symbols=256, num_speakers=2)),
+        ("mb_istft", ModelConfig.mb_istft("medium", num_symbols=256)),
+    )):
+        params = init_synthesizer_params(11 + seed, cfg)
+        if cfg.flow_transformer:
+            rng = np.random.default_rng(12)
+            for layer in params["flow"]["layers"]:
+                for k, v in layer["post"].items():
+                    layer["post"][k] = (v + POST_SCALE * rng.standard_normal(v.shape)).astype(np.float32)
+        path = out / f"{name}.npz"
+        save_native(str(path), params, cfg)
+        Path(str(path) + ".json").write_text(json.dumps(random_voice_config(cfg).to_dict()))
+        voices[name] = (path, cfg, params)
+    return voices
+
+
+@contextlib.contextmanager
+def counting_decodes():
+    """Every TorchVoice.submit's decodes, from any caller (the CLI, the
+    batcher's dispatcher): yields the list each submit appends to."""
+    from piper_tpu_torch.runtime.voice import TorchVoice
+
+    decodes = []
+    submit = TorchVoice.submit
+
+    def counted(self, *a, **k):
+        handle = submit(self, *a, **k)
+        decodes.append(handle["decodes"])
+        return handle
+
+    TorchVoice.submit = counted
+    try:
+        yield decodes
+    finally:
+        TorchVoice.submit = submit
+
+
+def ops_off_the_card(fn):
+    """fn() under a dispatch mode that counts every op and those whose
+    tensors (0-dim host scalars aside) are not on CUDA: (result, ops,
+    off)."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    counts = [0, 0]
+
+    class Mode(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            flat = list(args) + list((kwargs or {}).values()) + list(out if isinstance(out, (tuple, list))
+                                                                      else [out])
+            tensors = [x for x in flat if isinstance(x, torch.Tensor)]
+            counts[0] += 1
+            counts[1] += any(x.device.type != "cuda" and x.dim() > 0 for x in tensors)
+            return out
+
+    with Mode():
+        result = fn()
+    return result, counts[0], counts[1]
+
+
+def warm_batch_device_ms(voice, rows, card, what):
+    """Device time (torch.profiler, the sum of kernel time) and wall of
+    one warm 16-row batch, after two warm-up batches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        voice.synthesize_ids_batch(rows, syn=_syn(seed=7))
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        audios = voice.synthesize_ids_batch(rows, syn=_syn(seed=7))
+        walls.append(time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        voice.synthesize_ids_batch(rows, syn=_syn(seed=7))
+    events = [e for e in prof.key_averages() if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    dev_ms = sum(e.self_device_time_total for e in events) / 1e3
+    audio_s = sum(len(a) for a in audios) / voice.config.sample_rate
+    print(f"{what}: warm batch, fast, 16 rows ({audio_s:.2f} audio-s): device time {dev_ms:.2f} ms, "
+          f"{audio_s / (dev_ms / 1e3):.1f} audio-s per device s; wall {sorted(walls)} s, "
+          f"{audio_s / min(walls):.1f} audio-s/s at the best wall  [{card}]", flush=True)
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
+        print(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<4d} {e.key[:90]}")
+    return dev_ms
+
+
+def busy_ms(fn, reps: int = 3) -> float:
+    """Device busy time of one fn() (torch.profiler, the sum of kernel
+    time, the mean of `reps` profiled calls after two warm calls)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.inference_mode():
+        fn()
+        fn()  # a graph's key is captured at its second call
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if str(getattr(e, "device_type", "")).endswith("CUDA")) / 1e3 / reps
+
+
+def variant_costs(voice, name: str, card: str) -> None:
+    """What this variant's design costs on the card, at the warm batch's
+    shapes (16 rows of 437-490 frames, frame bucket 656), in device ms
+    (busy_ms) and event ms (time_ms). VITS2: the reverse flow of the 16
+    rows at their own bucket in graphs of flow_graph_rows(656) rows (the
+    decode path) against a graph of its own per row, and the flow's
+    attention blocks (the flow over the rows without them). MB-iSTFT:
+    the generator row by row at each row's length (the decode path)
+    against the whole batch under the mask (over which a bf16 row
+    moved)."""
+    import torch
+
+    from piper_tpu_torch.models.vits import istft_generator as MB
+    from piper_tpu_torch.models.vits import model as M
+    from piper_tpu_torch.runtime import batching
+    from piper_tpu_torch.runtime import voice as RV
+
+    cfg, p, dt = voice.model_cfg, voice.params, voice.dtype
+    g = torch.Generator().manual_seed(4)
+    frames = [437 + (7 * i) % 54 for i in range(16)]
+    t = batching.pick_bucket(max(frames), voice.frame_buckets) if cfg.flow_transformer else max(frames)
+    mask = (torch.arange(t)[None, :] < torch.tensor(frames)[:, None])[..., None].to("cuda", dt)
+    z = torch.randn((16, t, cfg.inter_channels), generator=g).to("cuda", dt) * mask
+    if cfg.flow_transformer:
+        sid = torch.ones(16, dtype=torch.long, device="cuda")
+        bare = {**p, "flow": {"layers": [{k: v for k, v in lp.items() if k not in ("attn", "attn_norm")}
+                                         for lp in p["flow"]["layers"]]}}
+
+        def by_rows(budget):
+            saved, RV.FLOW_FRAMES = RV.FLOW_FRAMES, budget
+            try:
+                return voice._flow_rows(z, mask, sid, frames)
+            finally:
+                RV.FLOW_FRAMES = saved
+
+        runs = (
+            (f"graphs of {RV.flow_graph_rows(t, dt)} rows (the decode path)",
+             lambda: by_rows(RV.FLOW_FRAMES)),
+            ("a graph per row", lambda: by_rows(0)),
+            ("eager, over the rows, with attention",
+             lambda: M.synthesizer_flow(p, z, mask, cfg=cfg, g=M.speaker_embedding(p, cfg, sid))),
+            ("eager, over the rows, without attention",
+             lambda: M.synthesizer_flow(bare, z, mask, cfg=cfg, g=M.speaker_embedding(p, cfg, sid))),
+        )
+        what = f"reverse flow, 16 rows at {t} frames"
+    else:
+        runs = (
+            ("row by row (the decode path)",
+             lambda: MB.mb_istft_generator_rows(p["dec"], z, frames, cfg=cfg, tables=p["dec_mb"])),
+            ("whole batch under the mask",
+             lambda: MB.mb_istft_generator_apply(p["dec"], z, mask, cfg=cfg, tables=p["dec_mb"])),
+        )
+        what = f"generator, 16 rows of {min(frames)}-{max(frames)} frames"
+    for how, fn in runs:
+        dev_ms = busy_ms(fn)
+        with torch.inference_mode():
+            ev_ms = time_ms(fn)
+        print(f"{name} cost ({voice.precision}): {what}, {how}: device {dev_ms:.3f} ms, "
+              f"events {ev_ms:.3f} ms  [{card}]", flush=True)
+
+
+def phase_variant(tmp: Path, name: str, path: Path, cfg, params_np, card: str, hifigan_ms):
+    """One phase-6 voice through the port's entry points on the card:
+    the CLI (WAV checks, same bytes twice, its kernel launches per
+    decode), the card against the port on the CPU in parity, the server
+    with the batcher in both precisions after a full warm-up (64 GETs
+    from 8 clients each equal to the request alone; VITS2: speaker_id
+    alternating, the speakers differ), each graph kind's replay against
+    its eager run, a parity /stream against the port's CPU chunks, and a
+    warm 16-row batch's device time. Returns the CLI's launches."""
+    import urllib.parse
+
+    import numpy as np
+    import torch
+
+    from piper_tpu_torch.config import SynthesisConfig
+    from piper_tpu_torch.models.vits import model as M
+    from piper_tpu_torch.runtime.batching import pick_bucket
+    from piper_tpu_torch.runtime.streaming import StreamingDecoder, synthesize_stream_chunks
+    from piper_tpu_torch.runtime.voice import TorchVoice, utterance_seed
+
+    t_phase = time.perf_counter()
+    vits2 = cfg.flow_transformer
+    u = cfg.upsample_factor
+    per_decode = (1, 2) if cfg.vocoder == "hifigan" else (0, 0)
+    spk = 1 if cfg.num_speakers > 1 else None
+
+    def launches_ok(what, n_mrf, n_fused, decodes, unit="decode"):
+        check(decodes >= 1 and n_mrf == per_decode[0] * decodes and n_fused == per_decode[1] * decodes,
+              f"{name}: {what} launched mrf_fused {n_mrf} and fused_upsample_mrf {n_fused} times for "
+              f"{decodes} {unit}s ({per_decode[0]} and {per_decode[1]} per {unit})")
+
+    # the CLI, twice: WAVs, same bytes, launches per decode
+    outs = [tmp / f"{name}_cli_{i}" for i in range(2)]
+    with counting_decodes() as decodes:
+        zero_counts()
+        t0 = time.perf_counter()
+        run_cli(["-m", str(path), "-d", str(outs[0]), "--batch", "--seed", "1", "-q"], TEXTS)
+        cli_s = time.perf_counter() - t0
+        cli_launches = dict(zip(("mrf_fused", "fused_upsample_mrf"), read_counts()))
+        launches_ok("the CLI (--batch, 4 lines)", *read_counts(), sum(decodes))
+        run_cli(["-m", str(path), "-d", str(outs[1]), "--batch", "--seed", "1", "-q"], TEXTS)
+    wavs = sorted(outs[0].glob("*.wav"))
+    check(len(wavs) == len(TEXTS), f"{name}: CLI wrote {len(wavs)} WAVs for {len(TEXTS)} lines ({cli_s:.3f} s)")
+    for p in wavs:
+        raw, sr, pcm = read_wav(p)
+        check(raw[:4] == b"RIFF" and sr == 22050 and len(pcm) > 0 and len(pcm) % u == 0
+              and int(np.abs(pcm).max()) > 0,
+              f"{name}: {p.name}: RIFF/WAVE, {sr} Hz, {len(pcm)} samples ({len(pcm) // u} frames), non-zero")
+    same = all((outs[1] / p.name).read_bytes() == p.read_bytes() for p in wavs)
+    check(same, f"{name}: same seed, same bytes (two CLI runs)")
+
+    # the card against the port on the CPU: parity, one short utterance
+    ids = [[1, 0] + [40 + (7 * i) % 50 for i in range(30)] + [0, 2]]
+    got = {}
+    for dev in ("cpu", "cuda"):
+        v = TorchVoice(params_np, cfg, _voice_cfg(cfg), precision="parity", device=dev)
+        got[dev] = v.synthesize_ids_batch(ids, syn=SynthesisConfig(seed=3, speaker_id=spk))[0]
+    n = min(len(got["cpu"]), len(got["cuda"]))
+    err = float(np.abs(got["cpu"][:n] - got["cuda"][:n]).max()) if n else math.inf
+    check(len(got["cpu"]) == len(got["cuda"]) and err < 1e-3,
+          f"{name}: card vs CPU, parity, {len(got['cuda'])} samples: max_abs_err {err:.3e} (atol 1e-3)")
+
+    for precision in ("fast", "parity"):
+        voice = TorchVoice.load(path, precision=precision, seed=0)
+        t0 = time.perf_counter()
+        voice.warmup((1, 16), full=True)
+        warm_s = time.perf_counter() - t0
+        check_graphs(voice)
+        if precision == "fast":
+            rng = np.random.default_rng(0)
+            rows = [[1, 0] + [int(t) for t in rng.integers(3, 256, 250)] + [0, 2] for _ in range(16)]
+            dev_ms = warm_batch_device_ms(voice, rows, card, f"{name} (medium)")
+            print(f"{name}: warm batch device time {dev_ms:.2f} ms against the HiFiGAN medium voice's "
+                  f"{hifigan_ms:.2f} ms (phase 3, same rows)  [{card}]", flush=True)
+            variant_costs(voice, name, card)
+            if cfg.vocoder == "mb_istft":
+                generate = M.synthesizer_generate
+                counts = {}
+
+                def watched(*a, **k):
+                    out, counts["ops"], counts["off"] = ops_off_the_card(lambda: generate(*a, **k))
+                    return out
+
+                M.synthesizer_generate = watched
+                try:
+                    voice.synthesize_ids_batch(rows[:4], syn=_syn(seed=7))
+                finally:
+                    M.synthesizer_generate = generate
+                check(counts.get("ops", 0) > 0 and counts["off"] == 0,
+                      f"{name}: the MB-iSTFT generator ran {counts.get('ops')} ops, {counts.get('off')} "
+                      "of them on tensors off the card")
+        # 16 requests, 4 texts; VITS2: each text and seed twice, speaker 0 then 1
+        paths = [f"/?text={urllib.parse.quote(TEXTS[(j // 2) % len(TEXTS)])}&seed={j // 2}"
+                 + (f"&speaker_id={j % 2}" if vits2 else "") for j in range(16)]
+        server, port, thread = serve_in_process(voice)
+        try:
+            alone = [http_get(port, p) for p in paths]
+            with counting_decodes() as decodes:
+                zero_counts()
+                batches0 = voice.batcher.stats["batches"]
+                got, wall = clients(port, paths, 8, 8)
+                n_mrf, n_fused = read_counts()
+            batches = voice.batcher.stats["batches"] - batches0
+            same = sum(g[0] == 200 and g[2] == alone[j][2] for j, g in got)
+            check(len(got) == 64 and same == 64 and all(a[0] == 200 for a in alone),
+                  f"{name} ({precision}): {same} of {len(got)} GETs from 8 clients"
+                  f"{' alternating speaker_id' if vits2 else ''} equal the request served alone")
+            check(0 < batches < 64, f"{name} ({precision}): {batches} batches for 64 GETs")
+            launches_ok(f"the server ({precision})", n_mrf, n_fused, sum(decodes))
+            if vits2:
+                s0, s1 = wav_pcm(alone[0][2])[1], wav_pcm(alone[1][2])[1]
+                check(len(s0) > 0 and (len(s0) != len(s1) or not np.array_equal(s0, s1)),
+                      f"{name} ({precision}): speaker 0 and 1 give different audio for the same text "
+                      f"and seed ({len(s0)} / {len(s1)} samples)")
+            lat = np.array([g[3] for _, g in got])
+            print(f"{name} window ({precision}, medium, warm-up {warm_s:.2f} s): 64 GETs from 8 closed-loop "
+                  f"clients in {wall} s: {64 / wall} requests/s, latency p50 {np.percentile(lat, 50)} s, p99 "
+                  f"{np.percentile(lat, 99)} s; {batches} batches  [{card}]", flush=True)
+            if precision == "parity":
+                # /stream on the card against the port's CPU chunks
+                q = (f"/stream?text={urllib.parse.quote(STREAM_TEXT_SHORT)}&seed=4"
+                     + (f"&speaker_id={spk}" if vits2 else ""))
+                zero_counts()
+                _, chunks, _, total = http_stream(port, q)
+                n_mrf, n_fused = read_counts()
+                launches_ok("/stream", n_mrf, n_fused, len(chunks), unit="chunk")
+                pcm = np.frombuffer(b"".join(chunks), "<i2").astype(np.float32) / 32767.0
+                cpu = TorchVoice(params_np, cfg, _voice_cfg(cfg), precision="parity", device="cpu", seed=0)
+                syn = SynthesisConfig(seed=4, speaker_id=spk)
+                s_ids = cpu.phonemes_to_ids(cpu.phonemize(STREAM_TEXT_SHORT)[0])
+                ref = list(synthesize_stream_chunks(cpu, s_ids, syn=syn))
+                ref_f = np.clip(np.concatenate(ref), -1.0, 1.0) if ref else np.zeros(0, np.float32)
+                err = float(np.abs(pcm - ref_f).max()) if len(pcm) == len(ref_f) else math.inf
+                check(len(chunks) == len(ref) >= 2 and err < 1e-3,
+                      f"{name}: /stream on the card, parity, {len(chunks)} chunks ({total:.3f} s) against the "
+                      f"port's CPU chunks ({len(ref)}): max_abs_err {err:.3e} (atol 1e-3, int16 wire)")
+                # the seams, an observation: JAX's chunking design, not the port's
+                key = utterance_seed(4, s_ids)
+                with torch.inference_mode():
+                    enc, fr = voice._encode([s_ids], [key], pick_bucket(len(s_ids), voice.phoneme_buckets), syn)
+                    frames = voice._read_frames([fr])[0][0]
+                    z_p, y_mask = voice._latents(enc, [key], frames, syn)
+                    sid = voice._speaker(syn, 1)
+                    whole = M.synthesizer_vocode(voice.params, z_p, y_mask, cfg=cfg, sid=sid)[0]
+                    whole = whole.float().cpu().numpy()
+                streamed = np.concatenate(list(StreamingDecoder(voice).stream(z_p, frames, sid)))
+                seam = np.abs(streamed - whole[: len(streamed)])
+                print(f"{name}: streamed vs whole decode, parity, {frames} frames (observation, not a check): "
+                      f"p99 {np.percentile(seam, 99):.3e}, mean {seam.mean():.3e}, max {seam.max():.3e}")
+        finally:
+            stop_serving(server, thread, voice)
+        del voice
+    print(f"phase 6, {name}: {time.perf_counter() - t_phase:.1f} s of wall  [{card}]", flush=True)
+    return cli_launches
+
+
 SPANNED = ("submit", "_encode", "_read_frames", "_latents", "_flow")
 
 
@@ -1458,7 +1823,7 @@ def main(argv) -> int:
         # 2. kernels against plain versions
         results = phase_kernels(cfg, params_np, peaks)
         # 3. main path, and the benchmark CLI on the same voice
-        launches = phase_main_path(tmp, cfg, params_np, smi)
+        launches, hifigan_ms = phase_main_path(tmp, cfg, params_np, smi)
         phase_benchmark(tmp, smi)
         # 4. serving path
         phase_serving(cfg, params_np, smi, peaks)
@@ -1466,6 +1831,13 @@ def main(argv) -> int:
         phase_published_files(tmp, cfg, params_np, smi)
     phase_two_speakers(smi)
     phase_long_row(cfg, params_np, smi, peaks)
+    # 6. VITS2 and MB-iSTFT voices; the kernels' launches are summed
+    # over the main paths of phase 3 and of this phase's CLI runs
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        for variant, (path, vcfg, vparams) in write_variant_voices(tmp / "voices").items():
+            for k, n in phase_variant(tmp, variant, path, vcfg, vparams, smi, hifigan_ms).items():
+                launches[k] += n
 
     kernels = []
     for kname in ("mrf_fused", "fused_upsample_mrf"):

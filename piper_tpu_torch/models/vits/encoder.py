@@ -1,7 +1,8 @@
 """Text encoder: transformer with windowed relative-position attention.
 
 Counterpart of piper_tpu/models/vits/encoder.py::text_encoder_apply
-(line 382). Parity target: reference TextEncoder (models.py:168-209) and
+(line 382) and local_attention_apply (line 211), the windowed attention
+of VITS2's flow. Parity target: reference TextEncoder (models.py:168-209) and
 attentions.Encoder / MultiHeadAttention / FFN (attentions.py:12-74,
 161-359, 362-427) with window_size=4 and shared relative-position heads.
 
@@ -18,6 +19,7 @@ import math
 from typing import Any, Dict, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from ...config import ModelConfig
 from . import layers as L
@@ -91,6 +93,69 @@ def attention_apply(
     return L.dense(p["o"], out.reshape(b, t, c))
 
 
+def _shift_t(a: torch.Tensor, o: int) -> torch.Tensor:
+    """a[:, i + o] along the time axis (1), zero past either end."""
+    if o == 0:
+        return a
+    pad = [0, 0] * (a.ndim - 2)
+    if o > 0:
+        return F.pad(a, pad + [0, o])[:, o:]
+    return F.pad(a, pad + [-o, 0])[:, : a.shape[1]]
+
+
+def local_attention_apply(
+    p: Params,
+    x: torch.Tensor,
+    x_mask: torch.Tensor,
+    *,
+    n_heads: int,
+    window: int = WINDOW_SIZE,
+) -> torch.Tensor:
+    """Windowed self-attention: position i attends only to |j - i| <= w
+    (piper_tpu/models/vits/encoder.py:211-280). x: (B, T, C); x_mask:
+    (B, T, 1).
+
+    Scores are computed in band form (B, H, T, 2w+1) from time-shifted
+    keys and values, so the (T, T) matrix never exists; the band offset
+    is the relative tables' index (emb_rel_k / emb_rel_v, (1 or H, 2w+1,
+    d)). Slots past the sequence or its valid length score -1e4. As in
+    JAX, the scores are float32 products of x.dtype operands and the
+    weights times the values run in x.dtype. Its callers run it at one
+    shape per row (the flow graphs, the chunk window), which keeps a
+    row's bits (PERF.md)."""
+    b, t, c = x.shape
+    k_channels = c // n_heads
+    scale = 1.0 / math.sqrt(k_channels)
+    kk = 2 * window + 1
+
+    q = (L.dense(p["q"], x) * scale).reshape(b, t, n_heads, k_channels)
+    k = L.dense(p["k"], x).reshape(b, t, n_heads, k_channels)
+    v = L.dense(p["v"], x).reshape(b, t, n_heads, k_channels)
+
+    k_band = torch.stack([_shift_t(k, o - window) for o in range(kk)], dim=2)
+    v_band = torch.stack([_shift_t(v, o - window) for o in range(kk)], dim=2)
+    # (B, T, K): 0 past the sequence or past its valid length
+    valid = torch.stack([_shift_t(x_mask[..., 0], o - window) for o in range(kk)], dim=2)
+
+    qf = q.float()
+    scores = torch.einsum("bqhd,bqohd->bhqo", qf, k_band.float())
+    rel_k = p["emb_rel_k"].to(x.dtype).float()  # (1 or H, 2w+1, d)
+    if rel_k.shape[0] == 1:
+        scores = scores + torch.einsum("bqhd,od->bhqo", qf, rel_k[0])
+    else:
+        scores = scores + torch.einsum("bqhd,hod->bhqo", qf, rel_k)
+    scores = scores.masked_fill(valid[:, None] == 0, -1e4)
+    p_attn = torch.softmax(scores, dim=-1).to(x.dtype)
+
+    out = torch.einsum("bhqo,bqohd->bqhd", p_attn, v_band)
+    rel_v = p["emb_rel_v"].to(x.dtype)
+    if rel_v.shape[0] == 1:
+        out = out + torch.einsum("bhqo,od->bqhd", p_attn, rel_v[0])
+    else:
+        out = out + torch.einsum("bhqo,hod->bqhd", p_attn, rel_v)
+    return L.dense(p["o"], out.reshape(b, t, c))
+
+
 def ffn_apply(
     p: Params, x: torch.Tensor, x_mask: torch.Tensor, *, kernel_size: int
 ) -> torch.Tensor:
@@ -126,14 +191,14 @@ def text_encoder_apply(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """ids: (B, T) integer; x_mask: (B, T, 1); g: (B, gin) or None.
 
-    Returns (hidden x, m_p, logs_p), each (B, T, ·) (models.py:198-209).
+    Returns (hidden x, m_p, logs_p), each (B, T, ·) (models.py:198-209),
+    with VITS2's speaker conditioning when the tree has `cond`
+    (encoder.py:400-401).
     """
-    if cfg.speaker_cond_encoder:
-        raise NotImplementedError(
-            "speaker_cond_encoder (VITS2) is ported in the VITS2 slice"
-        )
     emb = p["emb"]["weight"].to(dtype)
     x = emb[ids.long()] * math.sqrt(cfg.hidden_channels)
+    if "cond" in p and g is not None:
+        x = x + L.dense(p["cond"], g.to(dtype)[:, None, :])
     x_mask = x_mask.to(dtype)
     x = encoder_apply(p["encoder"], x, x_mask, cfg=cfg)
     stats = L.dense(p["proj"], x) * x_mask

@@ -6,12 +6,16 @@ into
 
   encode:   ids -> (m_p, logs_p, durations)           synthesizer_encode
   latents:  durations + frame noise -> z_p            synthesizer_latents
-  vocode:   z_p -> flow reverse -> HiFiGAN -> audio   synthesizer_vocode
+  vocode:   z_p -> flow reverse -> vocoder -> audio   synthesizer_vocode
 
 Speaker conditioning g = emb_g[sid] (models.py:692-694) is threaded to
-the duration predictor, the flow's WN stacks and the generator. The
-HiFiGAN vocoder always takes the time-major path (the CUDA kernels);
-MB-iSTFT and the VITS2 options raise NotImplementedError.
+the duration predictor, the flow's WN stacks and the generator, and to
+the text encoder of a VITS2 voice with speaker_cond_encoder. The vocoder
+follows cfg.vocoder, as the JAX package's apply_decoder does
+(model.py:70-83): HiFiGAN always takes the time-major path (the CUDA
+kernels), MB-iSTFT its plain generator (istft_generator.py), which no
+kernel of the port serves, as no Pallas kernel serves it in JAX
+(model.py:196).
 """
 
 from __future__ import annotations
@@ -29,21 +33,9 @@ from . import duration as D
 from . import encoder as E
 from . import flow as F
 from . import generator as G
+from . import istft_generator as MB
 
 Params = Dict[str, Any]
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise for the variants later slices of the port bring."""
-    if cfg.vocoder != "hifigan":
-        raise NotImplementedError(
-            f"vocoder {cfg.vocoder!r} (MB-iSTFT) is ported in the MB-iSTFT slice"
-        )
-    if cfg.flow_transformer or cfg.speaker_cond_encoder:
-        raise NotImplementedError(
-            "VITS2 options (flow_transformer, speaker_cond_encoder) are "
-            "ported in the VITS2 slice"
-        )
 
 
 def speaker_embedding(
@@ -75,7 +67,6 @@ def synthesizer_encode(
 ) -> EncodeResult:
     """Text encoder + duration prediction (models.py:691-704).
     dur_noise: (B, T_x, 2) standard normal."""
-    check_supported(cfg)
     x_mask = tnn.sequence_mask(lengths, ids.shape[1]).to(dtype)
     g = speaker_embedding(params, cfg, sid)
     x, m_p, logs_p = E.text_encoder_apply(
@@ -138,10 +129,22 @@ def synthesizer_generate(
     frames: Optional[Sequence[int]] = None,
     fixed_shape: bool = False,
 ) -> torch.Tensor:
-    """Time-major HiFiGAN (models.py:720) on the masked flow output z."""
+    """The vocoder (models.py:720) on the masked flow output z:
+    time-major HiFiGAN (`params["dec_tm"]`: generator.prepare_tm's
+    tables) or MB-iSTFT (`params["dec_mb"]`: istft_generator.prepare_mb's),
+    each made here when the tree lacks them. Both run their plain stages
+    row by row at the host lengths `frames` (read from y_mask when not
+    given), or, with `fixed_shape`, over the whole batch under the mask
+    (the mode a CUDA graph holds)."""
     # counted, not summed in the mask's dtype: a bfloat16 sum rounds
     # lengths past 256 frames (259 -> 260)
     frame_lengths = (y_mask[..., 0] > 0).sum(dim=1).to(torch.int32)
+    if cfg.vocoder == "mb_istft":
+        tables = params.get("dec_mb")
+        if fixed_shape:
+            return MB.mb_istft_generator_apply(params["dec"], z, y_mask, cfg=cfg, g=g, tables=tables)
+        lengths = list(frames) if frames is not None else frame_lengths.tolist()
+        return MB.mb_istft_generator_rows(params["dec"], z, lengths, cfg=cfg, g=g, tables=tables)
     tm = params.get("dec_tm")
     if tm is None:
         tm = G.prepare_tm(params["dec"], cfg, z.dtype)
@@ -162,13 +165,10 @@ def synthesizer_vocode(
     frames: Optional[Sequence[int]] = None,
     fixed_shape: bool = False,
 ) -> torch.Tensor:
-    """Flow reverse + time-major HiFiGAN (models.py:719-720): z_p ->
-    waveform (B, T_frames * upsample). Samples past each row's length
-    are not defined. `params["dec_tm"]` holds generator.prepare_tm's
-    tables (TorchVoice attaches them). `frames`: each row's valid frames
-    on the host, when known (generator_tm_apply's row_frames).
-    `fixed_shape`: generator_tm_apply's graph-capturable mode."""
-    check_supported(cfg)
+    """Flow reverse + vocoder (models.py:719-720): z_p -> waveform
+    (B, T_frames * upsample). Samples past each row's length are not
+    defined. `frames`: each row's valid frames on the host, when known.
+    `fixed_shape`: the graph-capturable mode (synthesizer_generate)."""
     if g is None:
         g = speaker_embedding(params, cfg, sid)
     z = synthesizer_flow(params, z_p, y_mask, cfg=cfg, g=g)
@@ -287,21 +287,23 @@ class _Init:
 
 
 def init_synthesizer_params(seed: int, cfg: ModelConfig) -> Params:
-    """Random-weight inference tree for `cfg` (numpy leaves)."""
-    check_supported(cfg)
+    """Random-weight inference tree for `cfg` (numpy leaves): VITS or
+    VITS2 (flow_transformer: attn and attn_norm in every coupling layer;
+    speaker_cond_encoder: enc_p.cond), HiFiGAN or MB-iSTFT (conv_post of
+    subbands * (n_fft + 2) outputs with a bias)."""
     r = _Init(seed)
     h, ic, fc = cfg.hidden_channels, cfg.inter_channels, cfg.filter_channels
     kd = h ** -0.5
 
-    def attention():
+    def attention(n_heads=cfg.n_heads):
         xav = math.sqrt(6.0 / (2 * h))
         return {
             "q": {"w": r.uniform((h, h), xav), "b": np.zeros(h, np.float32)},
             "k": {"w": r.uniform((h, h), xav), "b": np.zeros(h, np.float32)},
             "v": {"w": r.uniform((h, h), xav), "b": np.zeros(h, np.float32)},
             "o": {"w": r.uniform((h, h), math.sqrt(3.0 / h)), "b": r.uniform(h, h ** -0.5)},
-            "emb_rel_k": r.normal((1, 9, h // cfg.n_heads), (h // cfg.n_heads) ** -0.5),
-            "emb_rel_v": r.normal((1, 9, h // cfg.n_heads), (h // cfg.n_heads) ** -0.5),
+            "emb_rel_k": r.normal((1, 9, h // n_heads), (h // n_heads) ** -0.5),
+            "emb_rel_v": r.normal((1, 9, h // n_heads), (h // n_heads) ** -0.5),
         }
 
     enc_p = {
@@ -322,6 +324,8 @@ def init_synthesizer_params(seed: int, cfg: ModelConfig) -> Params:
         },
         "proj": r.dense(h, 2 * ic),
     }
+    if cfg.speaker_cond_encoder and cfg.gin_channels:
+        enc_p["cond"] = r.dense(cfg.gin_channels, h)
 
     def conv_flow():
         return {
@@ -355,16 +359,18 @@ def init_synthesizer_params(seed: int, cfg: ModelConfig) -> Params:
         if cfg.gin_channels:
             dp["cond"] = r.dense(cfg.gin_channels, h)
 
-    flow = {
-        "layers": [
-            {
-                "pre": r.dense(ic // 2, h),
-                "enc": r.wn(h, cfg.flow_kernel_size, cfg.flow_n_layers, cfg.gin_channels),
-                "post": r.dense(h, ic // 2, zero=True),
-            }
-            for _ in range(cfg.flow_n_flows)
-        ]
-    }
+    def coupling():
+        layer = {
+            "pre": r.dense(ic // 2, h),
+            "enc": r.wn(h, cfg.flow_kernel_size, cfg.flow_n_layers, cfg.gin_channels),
+            "post": r.dense(h, ic // 2, zero=True),
+        }
+        if cfg.flow_transformer:  # flow.py:37-46: two heads
+            layer["attn"] = attention(n_heads=2)
+            layer["attn_norm"] = r.norm(h)
+        return layer
+
+    flow = {"layers": [coupling() for _ in range(cfg.flow_n_flows)]}
 
     uic = cfg.upsample_initial_channel
     dec: Params = {"conv_pre": r.conv(7, ic, uic), "ups": [], "resblocks": []}
@@ -383,7 +389,11 @@ def init_synthesizer_params(seed: int, cfg: ModelConfig) -> Params:
             else:
                 blocks.append({"convs": [r.conv(rk, c_out, c_out, std=0.01) for _ in rd]})
         dec["resblocks"].append(blocks)
-    dec["conv_post"] = r.conv(7, uic // 2 ** len(cfg.upsample_rates), 1, bias=False)
+    final_ch = uic // 2 ** len(cfg.upsample_rates)
+    if cfg.vocoder == "mb_istft":  # istft_generator.py:35-44
+        dec["conv_post"] = r.conv(7, final_ch, cfg.subbands * (cfg.istft_n_fft + 2))
+    else:
+        dec["conv_post"] = r.conv(7, final_ch, 1, bias=False)
     if cfg.gin_channels:
         dec["cond"] = r.dense(cfg.gin_channels, uic)
 

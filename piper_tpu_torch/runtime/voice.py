@@ -13,11 +13,13 @@ mu-law wire or long-form windows. A batch of id sequences runs as
   3. each bucket's rows planned into decodes by `decode_grouping`
      (batching.plan_decode_groups: bucketed, uniform or packed), each
      decode at its frame bucket: prior expansion and frame noise
-     eagerly, the reverse flow as one graph replay per (frame bucket,
-     power-of-two rows) (parity: one per row, at its own frame bucket
-     and 1 row), the time-major HiFiGAN through the CUDA kernels
-     (ops/cuda/vocoder.py) eagerly at the decode's longest row, since
-     its row stages take each row's length on the host;
+     eagerly, the reverse flow of each row at the frame bucket it
+     decodes at alone, as graph replays of flow_graph_rows(bucket) rows,
+     the vocoder eagerly at the decode's longest row, since its row
+     stages take each row's length on the host: the time-major
+     HiFiGAN through the CUDA kernels (ops/cuda/vocoder.py), or the
+     MB-iSTFT generator (models/vits/istft_generator.py), every stage
+     row by row;
   4. conversion to int16 on the device (fast) or float32 (parity), and
      one copy of every row's valid samples to the host.
 
@@ -44,10 +46,10 @@ it rides in nor on the frame count it is decoded at (the two properties
 of voice.py:262-331). Noise is drawn on the host with torch's CPU
 generator and copied to the device, so the CPU and the card see the same
 numbers. A row's bits are its solo bits in either precision: the
-encodes run at one row count (ENCODE_ROWS), parity runs the flow row by
-row at each row's own frame bucket (fast's bf16 flow has kept a row's
-bits over a decode's rows in every check on the card), and conv_pre and
-the generator's plain stages run row by row (PERF.md).
+encodes run at one row count (ENCODE_ROWS), the flow at the row's own
+frame bucket at one row count per bucket (flow_graph_rows), and
+conv_pre and the generator's plain stages (all of MB-iSTFT's) run row by
+row (PERF.md).
 """
 
 from __future__ import annotations
@@ -65,6 +67,7 @@ import torch
 
 from ..config import InferenceDefaults, ModelConfig, SynthesisConfig, VoiceConfig
 from ..models.vits import generator as G
+from ..models.vits import istft_generator as MB
 from ..models.vits import model as M
 from ..ops.cuda import vocoder as V
 from ..text.phonemes import phonemes_to_ids
@@ -83,6 +86,27 @@ NOISE_BLOCK = 64  # frames per frame-noise block
 # never depend on how many rows share its bucket (cuBLAS and cuDNN pick
 # their algorithms by shape; PERF.md). One encode graph per bucket.
 ENCODE_ROWS = 16
+# Rows and frames of the flow graphs, for the same reason: a row's
+# reverse flow runs at its own frame bucket, in graphs of one row count
+# per bucket (flow_graph_rows), padded with copies of their first row.
+# Over a decode's rows at the decode's bucket a trained voice's float32
+# row and a perturbed flow's bf16 row moved (PERF.md).
+FLOW_MAX_ROWS = 16
+FLOW_FRAMES = 8192  # rows x frame bucket of a bf16 flow graph
+
+
+def flow_graph_rows(bucket: int, dtype: torch.dtype) -> int:
+    """Rows of the flow graph at frame bucket `bucket`: the largest power
+    of two up to FLOW_MAX_ROWS whose rows times `bucket` stay within
+    FLOW_FRAMES in bf16, half that in float32 (at least 1). Measured on
+    the card by tools/flow_rows.py: such a graph costs at most about
+    twice one row's, and each row of it at least half as much as alone,
+    where a float32 row costs about twice a bf16 row (PERF.md)."""
+    frames = FLOW_FRAMES * 2 // dtype.itemsize
+    n = 1
+    while 2 * n <= FLOW_MAX_ROWS and 2 * n * bucket <= frames:
+        n *= 2
+    return n
 
 
 @dataclasses.dataclass
@@ -211,7 +235,6 @@ class TorchVoice:
             raise ValueError(f"precision: {precision!r}")
         if decode_grouping not in batching.DECODE_GROUPINGS:
             raise ValueError(f"decode_grouping: {decode_grouping!r}")
-        M.check_supported(model_cfg)
         self.device = resolve_device(device)
         tf32_off()
         self.config = config
@@ -219,7 +242,13 @@ class TorchVoice:
         self.precision = precision
         self.dtype = torch.float32 if precision == "parity" else torch.bfloat16
         self.params = params_from_jax(params, model_cfg, self.device, self.dtype)
-        self.params["dec_tm"] = G.prepare_tm(self.params["dec"], model_cfg, self.dtype)
+        # the vocoder's derived tables: HiFiGAN's time-major weights for
+        # the kernels, MB-iSTFT's iSTFT and PQMF constants (TpuVoice
+        # builds dec_tm only for HiFiGAN, voice.py:203-212)
+        if model_cfg.vocoder == "mb_istft":
+            self.params["dec_mb"] = MB.prepare_mb(model_cfg, self.device)
+        else:
+            self.params["dec_tm"] = G.prepare_tm(self.params["dec"], model_cfg, self.dtype)
         self.phoneme_buckets = batching.DEFAULT_PHONEME_BUCKETS
         self.frame_buckets = batching.DEFAULT_FRAME_BUCKETS
         self.decode_grouping = decode_grouping
@@ -279,12 +308,27 @@ class TorchVoice:
         num_symbols: int = 256,
         num_speakers: int = 1,
         seed: int = 0,
+        vocoder: str = "hifigan",
+        variant: str = "vits",
         **kw,
     ) -> "TorchVoice":
-        """Random-weight voice with text (codepoint) phonemes."""
-        model_cfg = ModelConfig.for_quality(
-            quality, num_symbols=num_symbols, num_speakers=num_speakers
-        )
+        """Random-weight voice with text (codepoint) phonemes: `variant`
+        "vits" or "vits2", `vocoder` "hifigan" or "mb_istft"
+        (TpuVoice.random, piper_tpu/runtime/voice.py:856-895). Note that
+        a VITS2 flow's zero-initialised `post` makes its attention change
+        nothing until the weights are trained or perturbed."""
+        kw_cfg = dict(num_symbols=num_symbols, num_speakers=num_speakers)
+        if vocoder == "mb_istft":
+            if variant != "vits":
+                raise ValueError(
+                    "vocoder='mb_istft' with variant='vits2' is not a "
+                    "supported combination yet; pick one"
+                )
+            model_cfg = ModelConfig.mb_istft(quality, **kw_cfg)
+        elif variant == "vits2":
+            model_cfg = ModelConfig.vits2(quality, **kw_cfg)
+        else:
+            model_cfg = ModelConfig.for_quality(quality, **kw_cfg)
         params = M.init_synthesizer_params(seed, model_cfg)
         return cls(params, model_cfg, random_voice_config(model_cfg), seed=seed, **kw)
 
@@ -445,34 +489,49 @@ class TorchVoice:
         return (*enc, enc.durations.sum(dim=-1))
 
     def _flow_step(self, z_p, y_mask, sid):
-        """The flow graph's function: reverse flow over a decode's rows at
-        its frame bucket (the generator after it runs eagerly: its row
+        """The flow graph's function: reverse flow over a graph's rows at
+        their frame bucket (the generator after it runs eagerly: its row
         stages take host lengths)."""
         g = M.speaker_embedding(self.params, self.model_cfg, sid)
         return (M.synthesizer_flow(self.params, z_p, y_mask, cfg=self.model_cfg, g=g),)
 
     def _flow(self, z_p, y_mask, sid) -> torch.Tensor:
-        """A decode's reverse flow: a graph replay at (frame bucket, rows)
-        on the frame-bucket ladder, eager past it (a row decoded alone at
-        its own frame count)."""
+        """Reverse flow of rows at one frame bucket: a graph replay at
+        (frame bucket, rows) on the frame-bucket ladder, eager past it (a
+        row decoded alone at its own frame count)."""
         if z_p.shape[1] > self.frame_buckets[-1]:
             return self._flow_step(z_p, y_mask, sid)[0]
         key = ("flow", z_p.shape[1], z_p.shape[0], self.dtype, sid is not None)
         return self.graphs.run(key, self._flow_step, (z_p, y_mask, sid))[0]
 
     def _flow_rows(self, z_p, y_mask, sid, frames: Sequence[int]) -> torch.Tensor:
-        """Parity's reverse flow: each row alone at the frame bucket it
-        decodes at alone (its own frame count past the ladder). Over a
-        decode's rows at the decode's bucket, cuBLAS and cuDNN pick their
-        float32 algorithms by the rows and the bucket, and a row of a
-        trained voice moved against the same row alone (PERF.md)."""
+        """A decode's reverse flow: each row at the frame bucket it
+        decodes at alone (alone at its own frame count past the ladder),
+        the rows of one bucket in graphs of flow_graph_rows(bucket) rows,
+        each padded with copies of its first row, so a row's flow has one
+        shape alone and in any batch. Over a decode's rows at the
+        decode's bucket, cuBLAS and cuDNN pick their algorithms by the
+        rows and the bucket: a trained voice's float32 row moved against
+        the same row alone, and a bf16 row of a flow with `post`
+        perturbed (PERF.md)."""
         z = torch.zeros_like(z_p)
         top = self.frame_buckets[-1]
+        by_bucket: dict = {}
         for row, f in enumerate(frames):
             fb = batching.pick_bucket(f, self.frame_buckets) if f <= top else f
-            z[row, :fb] = self._flow(
-                z_p[row : row + 1, :fb], y_mask[row : row + 1, :fb], None if sid is None else sid[:1]
-            )[0]
+            by_bucket.setdefault(fb, []).append(row)
+        for fb, rows in by_bucket.items():
+            n = flow_graph_rows(fb, self.dtype) if fb <= top else 1
+            for lo in range(0, len(rows), n):
+                part = rows[lo : lo + n]
+                sel = part + part[:1] * (n - len(part))
+                out = self._flow(
+                    torch.cat([z_p[r : r + 1, :fb] for r in sel]),
+                    torch.cat([y_mask[r : r + 1, :fb] for r in sel]),
+                    None if sid is None else sid[:1].repeat(n),
+                )
+                for k, r in enumerate(part):
+                    z[r, :fb] = out[k]
         return z
 
     def _encode(self, rows_ids, keys, bucket: int, syn: SynthesisConfig):
@@ -569,12 +628,8 @@ class TorchVoice:
         for (indices, rkeys, enc, _), frames in zip(groups, counts):
             for fbucket, members in self._plan_decode_groups(frames):
                 n = len(members)
-                # fast runs a decode's flow on the ladder as one graph at
-                # round_rows(n) rows: pad rows repeat the first row
-                batched = self.precision == "fast" and fbucket <= self.frame_buckets[-1]
-                padded = members + members[:1] * (batching.round_rows(n) - n if batched else 0)
-                if padded != list(range(len(indices))):
-                    sel = torch.tensor(padded, pin_memory=self.device.type == "cuda")
+                if members != list(range(len(indices))):
+                    sel = torch.tensor(members, pin_memory=self.device.type == "cuda")
                     sel = sel.to(self.device, non_blocking=True)
                     genc = M.EncodeResult(*(t.index_select(0, sel) for t in enc))
                 else:
@@ -583,18 +638,14 @@ class TorchVoice:
                 z_p, y_mask = self._latents(genc, [rkeys[j] for j in members], fbucket, syn,
                                             gframes)
                 with self._span("decode"):
-                    sid = self._speaker(syn, len(padded))
-                    if batched:
-                        z = self._flow(z_p, y_mask, sid)
-                    else:
-                        z = self._flow_rows(z_p, y_mask, sid, gframes)
-                    g = M.speaker_embedding(self.params, self.model_cfg,
-                                            None if sid is None else sid[:n])
+                    sid = self._speaker(syn, n)
+                    z = self._flow_rows(z_p, y_mask, sid, gframes)
+                    g = M.speaker_embedding(self.params, self.model_cfg, sid)
                     # the eager generator runs at the longest row, not at
                     # the frame bucket: its kernels' work follows the width
                     t = max(max(gframes), 1)
                     audio = M.synthesizer_generate(
-                        self.params, z[:n, :t], y_mask[:n, :t], cfg=self.model_cfg, g=g,
+                        self.params, z[:, :t], y_mask[:, :t], cfg=self.model_cfg, g=g,
                         frames=gframes,
                     )
                     if self.precision == "fast":
@@ -737,9 +788,8 @@ class TorchVoice:
     def warmup(self, batch_sizes: Sequence[int] = (1,), *, full: bool = False) -> None:
         """Build the kernels (on CUDA), capture the encode graph of every
         phoneme bucket and the streaming chunk's graph (runtime/graphs.py).
-        With `full`, also the flow graphs of every frame bucket at every
-        power-of-two row count up to the largest batch size's (parity: at
-        1 row, the only count its row-by-row flow runs), and run
+        With `full`, also the flow graph of every frame bucket (at
+        flow_graph_rows(bucket) rows, the only count it runs), and run
         one whole batch (encode, decode, copy to the host) per
         power-of-two row count up to the largest batch size, at this
         voice's device and dtype: the allocator's blocks, cuDNN's and
@@ -766,17 +816,12 @@ class TorchVoice:
         if not full:
             return
         c = self.model_cfg.inter_channels
-        flow_rows = b_max if self.precision == "fast" else 1
         with torch.inference_mode():
             for fb in self.frame_buckets:
-                b = 1
-                while True:
-                    z = torch.zeros((b, fb, c), dtype=self.dtype, device=self.device)
-                    for _ in range(2):
-                        self._flow(z, z[..., :1], self._speaker(syn, b))
-                    if b >= flow_rows:
-                        break
-                    b *= 2
+                b = flow_graph_rows(fb, self.dtype)
+                z = torch.zeros((b, fb, c), dtype=self.dtype, device=self.device)
+                for _ in range(2):
+                    self._flow(z, z[..., :1], self._speaker(syn, b))
         rows = 1
         while True:
             self.collect(self.submit([[1, 0] + [tok, 0] * 30 + [2]] * rows, syn=syn))

@@ -298,8 +298,8 @@ def main(argv=None):
         help="Warm the serving path before requests pay for it (TorchVoice.warmup): "
         "'encode' builds the kernels and captures the CUDA graphs of each phoneme "
         "bucket's encode (at its one row count, 16) and of the streamed chunk; "
-        "'full' also captures the flow graphs of every frame bucket at each "
-        "power-of-two row count up to the largest batch size, and synthesises one "
+        "'full' also captures the flow graph of every frame bucket (at its one "
+        "row count), and synthesises one "
         "batch per power-of-two row count; 'background' (default) binds the port "
         "at once and runs 'full' on a daemon thread",
     )

@@ -70,12 +70,14 @@ def params_from_jax(
 
 
 def _check_tree(tree: Params, cfg: ModelConfig) -> None:
+    """Raise when the tree lacks what `cfg` runs: the generator's stages
+    and shapes (HiFiGAN or MB-iSTFT), VITS2's attention in every coupling
+    layer (flow_transformer) and the text encoder's speaker projection
+    (speaker_cond_encoder with a speaker embedding)."""
     for key in ("enc_p", "dp", "flow", "dec"):
         if key not in tree:
             raise KeyError(f"voice parameters lack {key!r}")
     dec = tree["dec"]
-    if cfg.vocoder != "hifigan":
-        return
     uic = cfg.upsample_initial_channel
     if len(dec["ups"]) != len(cfg.upsample_rates):
         raise ValueError(
@@ -87,6 +89,20 @@ def _check_tree(tree: Params, cfg: ModelConfig) -> None:
         got = tuple(np.shape(dec["ups"][i]["w"]))
         if got != want:
             raise ValueError(f"dec.ups.{i}.w has shape {got}, expected {want}")
+    if cfg.vocoder == "mb_istft":
+        want = (7, uic // 2 ** len(cfg.upsample_rates), cfg.subbands * (cfg.istft_n_fft + 2))
+        got = tuple(np.shape(dec["conv_post"]["w"]))
+        if got != want or "b" not in dec["conv_post"]:
+            raise ValueError(
+                f"dec.conv_post.w has shape {got} (bias: {'b' in dec['conv_post']}), "
+                f"MB-iSTFT expects {want} with a bias"
+            )
+    if cfg.flow_transformer:
+        for i, layer in enumerate(tree["flow"]["layers"]):
+            if "attn" not in layer or "attn_norm" not in layer:
+                raise ValueError(f"flow_transformer: flow.layers.{i} lacks attn or attn_norm")
+    if cfg.speaker_cond_encoder and cfg.gin_channels and "cond" not in tree["enc_p"]:
+        raise ValueError("speaker_cond_encoder: enc_p lacks cond")
 
 
 def iter_leaves(tree: Any, prefix: str = "") -> Iterator[Tuple[str, Any]]:

@@ -554,9 +554,10 @@ def test_loaded_voice_gives_the_npz_bytes_on_card(medium_files, fmt, precision):
 def test_coalesced_speaker_rows_equal_solo_rows_on_card(dev, precision):
     """The trained two-speaker x-low voice: 16 rows of one speaker in one
     submit give each row's solo audio bit for bit, for either speaker, in
-    both precisions. Parity runs the flow row by row at each row's own
-    frame bucket: over a decode's rows at the decode's bucket, a trained
-    voice's rows moved by up to 3.3e-6 against the row alone
+    both precisions. The flow runs each row at its own frame bucket in
+    graphs of one row count per bucket: over a decode's rows at the
+    decode's bucket, a trained voice's parity rows moved by up to 3.3e-6
+    against the row alone
     (tools/row_invariance.py --voice; chip_smoke.py's two-speaker window
     had 4 and 17 of 64 parity responses equal to the request alone)."""
     from pathlib import Path
@@ -581,3 +582,82 @@ def test_coalesced_speaker_rows_equal_solo_rows_on_card(dev, precision):
             np.testing.assert_array_equal(together[i], alone, err_msg=f"speaker {spk}, row {i}")
         outs[spk] = together
     assert any(len(a) != len(b) or not np.array_equal(a, b) for a, b in zip(outs[0], outs[1]))
+
+
+def _variant_voice(variant, precision):
+    """A random medium voice of `variant` on the card: "vits2" with two
+    speakers (flow_transformer, speaker_cond_encoder) or "vits", their
+    flows' `post` perturbed (zero-initialised, it would make the flow the
+    identity), or "mb_istft"."""
+    import numpy as np
+
+    from piper_tpu_torch.config import ModelConfig
+    from piper_tpu_torch.models.vits.model import init_synthesizer_params
+    from piper_tpu_torch.runtime.voice import TorchVoice, random_voice_config
+
+    if variant == "vits2":
+        cfg = ModelConfig.vits2("medium", num_symbols=256, num_speakers=2)
+    elif variant == "vits":
+        cfg = ModelConfig.for_quality("medium", num_symbols=256)
+    else:
+        cfg = ModelConfig.mb_istft("medium", num_symbols=256)
+    params = init_synthesizer_params(2, cfg)
+    rng = np.random.default_rng(3)
+    for layer in params["flow"]["layers"] if variant != "mb_istft" else []:
+        layer["post"] = {k: (v + 0.02 * rng.standard_normal(v.shape)).astype(np.float32)
+                         for k, v in layer["post"].items()}
+    return TorchVoice(params, cfg, random_voice_config(cfg), precision=precision, device="cuda", seed=0)
+
+
+@pytest.mark.parametrize("precision", ["fast", "parity"])
+@pytest.mark.parametrize("variant", ["vits2", "mb_istft"])
+def test_coalesced_variant_rows_equal_solo_rows_on_card(dev, variant, precision):
+    """16 rows of several phoneme buckets and lengths in one submit give
+    each row's solo audio bit for bit, on the medium VITS2 voice (speaker
+    1: the flow's attention and the speaker-conditioned encoder) and the
+    medium MB-iSTFT voice (its generator row by row at each row's
+    length), in both precisions. The flow runs each row at its own frame
+    bucket in graphs of flow_graph_rows(bucket) rows: over a decode's
+    rows a bf16 row moved by one step (tools/row_invariance.py --voice).
+    VITS2 also counts one mrf_fused and two fused_upsample_mrf launches
+    per decode, MB-iSTFT none."""
+    import numpy as np
+
+    from piper_tpu_torch.config import SynthesisConfig
+
+    voice = _variant_voice(variant, precision)
+    spk = 1 if variant == "vits2" else None
+    rows = [_long_ids(n) for n in (5, 23, 40, 61, 90, 120, 14, 77, 33, 8, 101, 47, 66, 19, 130, 55)]
+    seeds = list(range(16))
+    V.mrf_fused.launches = V.fused_upsample_mrf.launches = 0
+    handle = voice.submit(rows, syn=SynthesisConfig(speaker_id=spk), row_seeds=seeds)
+    per = 1 if variant == "vits2" else 0
+    assert (V.mrf_fused.launches, V.fused_upsample_mrf.launches) == (per * handle["decodes"],
+                                                                   2 * per * handle["decodes"])
+    together = voice.collect(handle)
+    frames = [len(a) // voice.model_cfg.upsample_factor for a in together]
+    assert max(frames) > 256, frames
+    for i, (row, seed) in enumerate(zip(rows, seeds)):
+        alone = voice.synthesize_ids_batch([row], syn=SynthesisConfig(seed=seed, speaker_id=spk))[0]
+        np.testing.assert_array_equal(together[i], alone, err_msg=f"row {i} ({frames[i]} frames)")
+
+
+@pytest.mark.parametrize("precision", ["fast", "parity"])
+def test_coalesced_rows_of_a_perturbed_vits_flow_equal_solo_rows_on_card(dev, precision):
+    """The medium VITS voice with its flows' `post` perturbed (random
+    weights make the flow the identity, which hid that one bf16 row moved
+    by one step in a flow over a decode's rows): 16 rows in one submit
+    give each row's solo audio bit for bit, in both precisions, since the
+    flow runs each row at its own frame bucket in graphs of one row
+    count per bucket."""
+    import numpy as np
+
+    from piper_tpu_torch.config import SynthesisConfig
+
+    voice = _variant_voice("vits", precision)
+    rows = [_long_ids(n) for n in (5, 23, 40, 61, 90, 120, 14, 77, 33, 8, 101, 47, 66, 19, 130, 55)]
+    seeds = list(range(16))
+    together = voice.collect(voice.submit(rows, row_seeds=seeds))
+    for i, (row, seed) in enumerate(zip(rows, seeds)):
+        alone = voice.synthesize_ids_batch([row], syn=SynthesisConfig(seed=seed))[0]
+        np.testing.assert_array_equal(together[i], alone, err_msg=f"row {i}")

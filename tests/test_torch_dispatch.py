@@ -191,6 +191,52 @@ def test_encodes_run_at_one_row_count(params, monkeypatch):
             assert int(f1[0]) == int(frames[i])
 
 
+@pytest.mark.parametrize("dtype,frames", [(torch.bfloat16, RV.FLOW_FRAMES),
+                                          (torch.float32, RV.FLOW_FRAMES // 2)])
+@pytest.mark.parametrize("bucket", batching.DEFAULT_FRAME_BUCKETS)
+def test_flow_graph_rows_fill_the_frame_budget(bucket, dtype, frames, monkeypatch):
+    """A flow graph holds the most rows, a power of two up to
+    FLOW_MAX_ROWS, whose rows times the bucket stay within FLOW_FRAMES
+    in bf16 and half that in float32 (one row when even one exceeds it);
+    a budget of 0 is a graph per row."""
+    n = RV.flow_graph_rows(bucket, dtype)
+    assert n & (n - 1) == 0 and 1 <= n <= RV.FLOW_MAX_ROWS
+    assert n == 1 or n * bucket <= frames
+    assert 2 * n > RV.FLOW_MAX_ROWS or 2 * n * bucket > frames
+    monkeypatch.setattr(RV, "FLOW_FRAMES", 0)
+    assert RV.flow_graph_rows(bucket, dtype) == 1
+
+
+@pytest.mark.parametrize("precision", ["parity", "fast"])
+def test_flow_runs_each_row_at_its_own_bucket(params, precision, monkeypatch):
+    """Every voice runs a row's reverse flow at the frame bucket it
+    decodes at alone, in graphs of flow_graph_rows(bucket) rows padded
+    with copies of their first row, in both precisions: one uniform
+    decode of rows in several buckets makes one graph shape per own
+    bucket, and a row decoded alone has its graph's shape and bits."""
+    voice = _voice(params, precision, FRAME_BUCKETS, decode_grouping="uniform")
+    monkeypatch.setattr(RV, "FLOW_FRAMES", 128)  # 8 or 4 rows at bucket 16, fewer above
+    shapes = []
+    flow = voice._flow
+
+    def spy(z_p, y_mask, sid):
+        shapes.append(tuple(z_p.shape[:2]))
+        return flow(z_p, y_mask, sid)
+
+    monkeypatch.setattr(voice, "_flow", spy)
+    rows = _rows()
+    together = voice.collect(voice.submit(rows, row_seeds=list(range(len(rows)))))
+    frames = [len(a) // CFG.upsample_factor for a in together]
+    own = [batching.pick_bucket(f, FRAME_BUCKETS) for f in frames]
+    assert len(set(own)) >= 2, frames
+    assert sorted(set(shapes)) == sorted({(RV.flow_graph_rows(b, voice.dtype), b) for b in own})
+    for i in (0, len(rows) - 1):
+        shapes.clear()
+        alone = voice.synthesize_ids_batch([rows[i]], syn=SynthesisConfig(seed=i))[0]
+        assert shapes == [(RV.flow_graph_rows(own[i], voice.dtype), own[i])]
+        np.testing.assert_array_equal(together[i], alone)
+
+
 def test_graph_capture_records_launches_instead_of_counting():
     """recording_launches: the kernels a capture enqueues go into its
     Counter, not the wrappers' counts; outside it, count_launch counts.

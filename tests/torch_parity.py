@@ -29,6 +29,16 @@ TINY = ModelConfig(
     audio=AudioConfig(sample_rate=16000),
 )
 TINY_MS = dataclasses.replace(TINY, num_speakers=3, gin_channels=16)
+# VITS2 (ModelConfig.vits2's flags) with three speakers, so both the flow's
+# attention and the speaker-conditioned text encoder are on; and the
+# MB-iSTFT vocoder (ModelConfig.mb_istft's 4-4 stack, 4 bands, n_fft 16).
+TINY_VITS2 = dataclasses.replace(
+    TINY_MS, flow_transformer=True, use_dur_disc=True, mas_noise=True,
+    speaker_cond_encoder=True,
+)
+TINY_MB = dataclasses.replace(
+    TINY, vocoder="mb_istft", upsample_rates=(4, 4), upsample_kernel_sizes=(8, 8),
+)
 
 
 def tcfg(cfg: ModelConfig) -> TModelConfig:
@@ -46,6 +56,22 @@ def jax_params(cfg: ModelConfig, seed: int = 0):
     from piper_tpu.models.vits.model import init_synthesizer_params
 
     return np_tree(init_synthesizer_params(jax.random.PRNGKey(seed), cfg))
+
+
+def perturb_flow_post(tree, seed: int = 1, scale: float = 0.05):
+    """The tree with every coupling layer's `post` perturbed (numpy,
+    seeded), as tests/test_vits2.py:49-65 perturbs the flow: `post` is
+    zero-initialised, so with random weights the flow's attention would
+    change nothing and no test could see it."""
+    rng = np.random.default_rng(seed)
+    out = dict(tree)
+    out["flow"] = {"layers": []}
+    for layer in tree["flow"]["layers"]:
+        layer = dict(layer)
+        layer["post"] = {k: (v + scale * rng.standard_normal(v.shape)).astype(np.float32)
+                         for k, v in layer["post"].items()}
+        out["flow"]["layers"].append(layer)
+    return out
 
 
 def port_params(tree, cfg: ModelConfig, dtype=torch.float32):

@@ -17,8 +17,18 @@ at PyTorch's defaults and with both off (as a TorchVoice leaves them): the int16
 and the device time of the batch (torch.profiler, the sum of kernel
 time), in turns A B B A.
 
-Part 3, with --voice (a native .npz voice, e.g. the trained
-two-speaker tests/data/voice_xlow_ms2_trained_fp16.npz): the voice's
+On a VITS2 voice Part 1 adds the flow's windowed attention alone
+(flow_attention: layer 0's, on random hidden states), on an MB-iSTFT
+voice the generator over the group under its length mask
+(mb_generator_masked; the decode path runs it row by row instead).
+
+--perturb-post STD adds noise to the flows' zero-initialised `post`
+of --voice's tree first (a random voice's flow is otherwise the
+identity, and no layer of it can move a row).
+
+Part 3, with --voice (a native .npz voice of any variant, e.g. the
+trained two-speaker tests/data/voice_xlow_ms2_trained_fp16.npz, or
+chip_smoke.write_variant_voices' VITS2 and MB-iSTFT voices): the voice's
 own stages (encode: m_p, logs_p, durations; latents z_p; the reverse
 flow; the generator's audio) on one coalesced submit of the 16 rows
 against each row submitted alone, in both precisions, for --speaker
@@ -47,6 +57,7 @@ from piper_tpu_torch.models.vits import duration as D  # noqa: E402
 from piper_tpu_torch.models.vits import encoder as E  # noqa: E402
 from piper_tpu_torch.models.vits import flow as F  # noqa: E402
 from piper_tpu_torch.models.vits import generator as G  # noqa: E402
+from piper_tpu_torch.models.vits import istft_generator as MB  # noqa: E402
 from piper_tpu_torch.models.vits import model as M  # noqa: E402
 from piper_tpu_torch.models.vits.model import init_synthesizer_params  # noqa: E402
 from piper_tpu_torch.ops import nn as tnn  # noqa: E402
@@ -76,6 +87,11 @@ def layer_diffs(voice: TorchVoice, speaker=None) -> dict:
     gen = torch.Generator().manual_seed(0)
     out = {k: 0.0 for k in ("text_encoder", "duration", "flow", "flow_group_length",
                             "conv_pre", "conv_pre_group_length")}
+    if cfg.flow_transformer:
+        out.update(flow_attention=0.0, flow_attention_group_length=0.0)
+    if cfg.vocoder == "mb_istft":
+        out.update(mb_generator_masked=0.0)
+    u = cfg.upsample_factor
     with torch.inference_mode():
         for bucket, idx in batching.group_by_bucket([len(r) for r in rows], voice.phoneme_buckets):
             # padded to a power of two with copies of the group's first
@@ -101,6 +117,13 @@ def layer_diffs(voice: TorchVoice, speaker=None) -> dict:
             f_mask = f_mask.to(dev, dt)
             zf = F.flow_apply(p["flow"], z, f_mask, cfg=cfg, reverse=True, g=g)
             pre = G._conv_pre(p["dec"], zf * f_mask, g)
+            if cfg.flow_transformer:
+                attn = p["flow"]["layers"][0]["attn"]
+                h = (torch.randn((b, t, cfg.hidden_channels), generator=gen).to(dev, dt) * f_mask)
+                att = E.local_attention_apply(attn, h, f_mask, n_heads=2)
+            if cfg.vocoder == "mb_istft":
+                wav = MB.mb_istft_generator_apply(p["dec"], zf * f_mask, f_mask, cfg=cfg, g=g,
+                                                  tables=p.get("dec_mb"))
             for j in range(b):
                 gj = None if g is None else g[j : j + 1]
                 n_ids = int(lens[j])
@@ -119,6 +142,16 @@ def layer_diffs(voice: TorchVoice, speaker=None) -> dict:
                     pj = G._conv_pre(p["dec"], (zf * f_mask)[j : j + 1, :width], gj)
                     ckey = key.replace("flow", "conv_pre")
                     out[ckey] = max(out[ckey], _max_diff(pj[0, :n], pre[j, :n]))
+                    if cfg.flow_transformer:
+                        aj = E.local_attention_apply(attn, h[j : j + 1, :width], f_mask[j : j + 1, :width],
+                                                     n_heads=2)
+                        akey = key.replace("flow", "flow_attention")
+                        out[akey] = max(out[akey], _max_diff(aj[0, :n], att[j, :n]))
+                if cfg.vocoder == "mb_istft":
+                    wj = MB.mb_istft_generator_apply(p["dec"], (zf * f_mask)[j : j + 1, :n], None, cfg=cfg,
+                                                     g=gj, tables=p.get("dec_mb"))
+                    out["mb_generator_masked"] = max(out["mb_generator_masked"],
+                                                     _max_diff(wj[0], wav[j, : n * u]))
     return out
 
 
@@ -219,20 +252,28 @@ def main(argv=None) -> None:
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--voice", help="a native .npz voice: Part 1 and Part 3 on it, no Part 2")
     ap.add_argument("--speaker", type=int, default=1, help="the speaker of --voice's rows")
+    ap.add_argument("--perturb-post", type=float, default=0.0, metavar="STD",
+                    help="add N(0, STD^2) noise (seed 12) to every flow's post first: a random "
+                         "voice's zero post makes its flow the identity, which hides its rounding")
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
     if args.voice:
         params, cfg = load_native(args.voice)
+        if args.perturb_post:
+            rng = np.random.default_rng(12)
+            for layer in params["flow"]["layers"]:
+                layer["post"] = {k: (v + args.perturb_post * rng.standard_normal(v.shape)).astype(np.float32)
+                                 for k, v in layer["post"].items()}
         name = torch.cuda.get_device_name(0) if dev.type == "cuda" else "cpu"
         speaker = args.speaker if cfg.num_speakers > 1 else None
         for precision in ("parity", "fast"):
             voice = TorchVoice(params, cfg, random_voice_config(cfg), precision=precision,
                                device=dev, seed=0)
             print(json.dumps({"part": "layers", "voice": args.voice, "speaker": speaker,
-                              "precision": precision, "device": name,
+                              "perturb_post": args.perturb_post, "precision": precision, "device": name,
                               "max_abs_diff": layer_diffs(voice, speaker)}), flush=True)
             print(json.dumps({"part": "stages", "voice": args.voice, "speaker": speaker,
-                              "precision": precision, "device": name,
+                              "perturb_post": args.perturb_post, "precision": precision, "device": name,
                               **stage_diffs(voice, speaker)}), flush=True)
         return
     cfg = ModelConfig.for_quality(args.quality, num_symbols=256)
