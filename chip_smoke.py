@@ -67,8 +67,30 @@ Phases (any failure makes the exit code non-zero):
      /stream against the port's CPU chunks (1e-3; the seams printed as an
      observation), and a warm 16-row batch's device time beside phase 3's
      HiFiGAN voice's;
-  7. one JSON line of per-kernel numbers (launches summed over the CLI
-     main paths of phases 3 and 6), then the device line.
+  7. training on the card: a synthetic dataset directory in
+     preprocess's layout (16 utterances of 1.5-4 s at 22,050 Hz, 30-90
+     ids, spectrograms from ops/stft.spectrogram); the seeded noise of
+     fixed keys on the card against the CPU (threefry bits equal,
+     normals within 1e-6); each training module on the card against the
+     port on the CPU in float32 (values and gradients, 1e-3 of the
+     largest), MAS against maximum_path_numpy; one train_step at the
+     medium preset's full width, batch 2, card against CPU (every loss
+     within rtol 1e-3, equal MAS durations and segment starts); the
+     warm step time in both precisions at batch 8 with MAS's share and
+     the peak memory; one step each of a VITS2 and an MB-iSTFT model at
+     medium width (finite losses); python -m piper_tpu_torch.train in
+     this process (4 steps at one bucket shape with a checkpoint, a
+     validation pass through infer and an export, then --resume to 6)
+     and the exported voice through python -m piper_tpu_torch (WAV
+     checks). No kernel of the port runs in the
+     training step (nor a Pallas kernel in the JAX one); the validation
+     pass's infer runs both.
+
+Then the card's nvidia-smi line, one JSON line of per-kernel numbers
+(launches summed over the CLI main paths of phases 3 and 6), and the
+device line. Every phase prints its start, its end and its wall
+seconds; a phase that raises is a failed check, and the failed checks
+are listed on stdout and on stderr before a non-zero exit.
 
 Needs one CUDA card; prints no result and exits non-zero without one.
 
@@ -117,6 +139,23 @@ def check(ok: bool, what: str) -> None:
     print(("ok   " if ok else "FAIL ") + what, flush=True)
     if not ok:
         FAILURES.append(what)
+
+
+@contextlib.contextmanager
+def phase(name: str):
+    """Print a phase's start, its end and its wall seconds; an exception
+    inside it is a failed check (so a later phase still runs and the
+    failure list names it)."""
+    print(f"=== phase {name}: start", flush=True)
+    t0 = time.perf_counter()
+    try:
+        yield
+    except Exception as e:  # a phase that raised: record it, run the rest
+        import traceback
+
+        traceback.print_exc()
+        check(False, f"phase {name} raised {type(e).__name__}: {e}")
+    print(f"=== phase {name}: end, {time.perf_counter() - t0:.1f} s of wall", flush=True)
 
 
 def peaks_for(name: str):
@@ -952,9 +991,9 @@ def phase_serving(cfg, params_np, card, peaks):
         headers, chunks, first, total = http_stream(port, q)
         n_mrf, n_fused = V.mrf_fused.launches, V.fused_upsample_mrf.launches
         replays = voice.graphs.stats["replays"] - graphs0["replays"]
-        check(voice.graphs.stats["captures"] == graphs0["captures"] and replays == len(chunks) + 1,
-              f"/stream ran through the warm graphs: {replays} replays (its encode and {len(chunks)} "
-              f"chunks), {voice.graphs.stats['captures'] - graphs0['captures']} new captures")
+        check(voice.graphs.stats["captures"] == graphs0["captures"] and replays == len(chunks) + 2,
+              f"/stream ran through the warm graphs: {replays} replays (its encode, its latents and "
+              f"{len(chunks)} chunks), {voice.graphs.stats['captures'] - graphs0['captures']} new captures")
         pcm = np.frombuffer(b"".join(chunks), "<i2")
         ids = voice.phonemes_to_ids(voice.phonemize(STREAM_TEXT)[0])
         batched = voice.synthesize_ids_batch([ids], syn=_syn(seed=4))[0]
@@ -1436,18 +1475,19 @@ def variant_costs(voice, name: str, card: str) -> None:
         sid = torch.ones(16, dtype=torch.long, device="cuda")
         bare = {**p, "flow": {"layers": [{k: v for k, v in lp.items() if k not in ("attn", "attn_norm")}
                                          for lp in p["flow"]["layers"]]}}
+        noise_in = voice._noise_inputs(list(range(16)), _syn(seed=0))
 
         def by_rows(budget):
             saved, RV.FLOW_FRAMES = RV.FLOW_FRAMES, budget
-            try:
-                return voice._flow_rows(z, mask, sid, frames)
+            try:  # the flow graphs draw each row's frame noise too
+                return voice._flow_rows(z, z, mask, *noise_in, sid, frames)
             finally:
                 RV.FLOW_FRAMES = saved
 
         runs = (
-            (f"graphs of {RV.flow_graph_rows(t, dt)} rows (the decode path)",
+            (f"graphs of {RV.flow_graph_rows(t, dt)} rows with their latents (the decode path)",
              lambda: by_rows(RV.FLOW_FRAMES)),
-            ("a graph per row", lambda: by_rows(0)),
+            ("a graph per row with its latents", lambda: by_rows(0)),
             ("eager, over the rows, with attention",
              lambda: M.synthesizer_flow(p, z, mask, cfg=cfg, g=M.speaker_embedding(p, cfg, sid))),
             ("eager, over the rows, without attention",
@@ -1626,6 +1666,375 @@ def phase_variant(tmp: Path, name: str, path: Path, cfg, params_np, card: str, h
     return cli_launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: training on the card
+# ---------------------------------------------------------------------------
+
+TRAIN_UTTERANCES = 16  # synthetic, 1.5-4 s at 22,050 Hz, 30-90 ids each
+# (rtol) of the card against the port on the CPU in float32 with TF32
+# off: the same float32 ops summed in another order (cuDNN and cuBLAS
+# against the CPU's kernels), through the posterior's 16 WN layers, the
+# flows, the generator and the discriminators' 1024-channel convs
+TRAIN_RTOL = 1e-3
+# the feature loss's gradients: |fmap_r - fmap_g| passes back the sign of
+# each difference, and a difference within rounding of zero may take the
+# other sign on the other device, each such element moving a weight's
+# gradient by 2 |d fmap / d w| / N; its values keep TRAIN_RTOL
+FEATURE_GRAD_RTOL = 1e-2
+
+
+def rel_err(got, ref) -> float:
+    """max |got - ref| over max |ref|, on the CPU."""
+    got, ref = got.detach().float().cpu(), ref.detach().float().cpu()
+    return float((got - ref).abs().max()) / max(float(ref.abs().max()), 1e-30)
+
+
+def cuda_tree(tree):
+    if isinstance(tree, dict):
+        return {k: cuda_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [cuda_tree(v) for v in tree]
+    return tree.detach().cuda().requires_grad_(tree.requires_grad)
+
+
+def train_batch(ds: Path, cfg, rows: int, shortest: bool = False):
+    """One batch of `rows` utterances of the smoke's dataset, collated by
+    the trainer's BucketedLoader into one bucket (the shortest ones when
+    `shortest`, else the first rows in order)."""
+    import numpy as np
+
+    from piper_tpu_torch.train.dataset import BucketedLoader, load_dataset
+
+    utts = load_dataset([ds / "dataset.jsonl"])
+    if shortest:
+        utts = sorted(utts, key=lambda u: np.load(u.audio_norm_path, mmap_mode="r").shape[0])
+    loader = BucketedLoader(utts[:rows], batch_size=rows, hop_length=cfg.audio.hop_length,
+                            segment_size=cfg.segment_size, multispeaker=cfg.num_speakers > 1,
+                            seed=0, single_shape=True)
+    return next(iter(loader))
+
+
+def _to(batch, device):
+    import torch
+
+    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+
+def train_modules_vs_cpu(ds: Path, cfg, params_g, params_d) -> None:
+    """Each training module on the card against the port on the CPU,
+    float32 with TF32 off, at the medium preset's widths: values, and
+    for the differentiable ones the gradient of a random projection."""
+    import numpy as np
+    import torch
+
+    from piper_tpu_torch.models.vits import discriminator as DS
+    from piper_tpu_torch.models.vits import duration as D
+    from piper_tpu_torch.models.vits import posterior as Q
+    from piper_tpu_torch.ops import mas as MAS
+    from piper_tpu_torch.ops import stft as S
+    from piper_tpu_torch.train import losses as LS
+
+    a = cfg.audio
+    batch = train_batch(ds, cfg, 2, shortest=True)
+    gcu, dcu = cuda_tree(params_g), cuda_tree(params_d)
+    g = torch.Generator().manual_seed(7)
+
+    def both(name, fn, *inputs, grad_of=None, grad_rtol=TRAIN_RTOL):
+        """fn(dev, *inputs) on the CPU and on the card: values, then the
+        gradients of a random projection with respect to the inputs that
+        require grad and `grad_of(dev)`."""
+        outs = {}
+        for role, dev in (("cpu", "cpu"), ("card", "cuda")):
+            xs = [x.detach().to(dev).requires_grad_(x.requires_grad) if isinstance(x, torch.Tensor)
+                  else x for x in inputs]
+            out = fn(dev, *xs)
+            grads = []
+            if grad_of is not None:
+                proj = torch.randn(out.shape, generator=torch.Generator().manual_seed(3)).to(dev)
+                targets = [x for x in xs if isinstance(x, torch.Tensor) and x.requires_grad]
+                targets += grad_of(dev)
+                grads = torch.autograd.grad((out.float() * proj).sum(), targets, allow_unused=True)
+            outs[role] = (out, grads)
+        err = rel_err(outs["card"][0], outs["cpu"][0])
+        gerr = max([rel_err(gc, gp) for gc, gp in zip(outs["card"][1], outs["cpu"][1])
+                    if gc is not None and gp is not None] or [0.0])
+        check(err < TRAIN_RTOL and gerr < grad_rtol,
+              f"train module {name}: card vs CPU, float32, max error {err:.2e} of the largest value "
+              f"(< {TRAIN_RTOL}), gradients {gerr:.2e} (< {grad_rtol})")
+
+    audio = torch.from_numpy(batch["audio"][:, :16384]).requires_grad_(True)
+    mel_kw = dict(sample_rate=a.sample_rate, n_fft=a.filter_length, hop_length=a.hop_length,
+                  win_length=a.win_length, n_mels=a.mel_channels, fmin=a.mel_fmin, fmax=a.mel_fmax)
+    both("spectrogram", lambda dev, y: S.spectrogram(y, n_fft=a.filter_length, hop_length=a.hop_length,
+                                                     win_length=a.win_length), audio, grad_of=lambda d: [])
+    both("mel_spectrogram", lambda dev, y: S.mel_spectrogram(y, **mel_kw), audio, grad_of=lambda d: [])
+
+    spec = torch.from_numpy(batch["spec"])
+    lens = torch.from_numpy(batch["spec_lengths"])
+    y_mask = (torch.arange(spec.shape[1])[None, :] < lens[:, None])[..., None].float()
+    noise = torch.randn((2, spec.shape[1], cfg.inter_channels), generator=g)
+    pick = {"cpu": params_g, "cuda": gcu}
+    both("posterior_encode",
+         lambda dev, s, m, n: Q.posterior_encode(pick[dev]["enc_q"], s, m, cfg=cfg, noise=n)[0],
+         spec, y_mask, noise, grad_of=lambda d: [pick[d]["enc_q"]["pre"]["w"], pick[d]["enc_q"]["proj"]["w"]])
+
+    t_x = int(batch["id_lengths"].max())
+    x = torch.randn((2, t_x, cfg.hidden_channels), generator=g)
+    x_mask = (torch.arange(t_x)[None, :] < torch.from_numpy(batch["id_lengths"])[:, None])[..., None].float()
+    w = torch.randint(1, 8, (2, t_x, 1), generator=g).float()
+    e_q = torch.randn((2, t_x, 2), generator=g)
+    both("sdp_forward_nll",
+         lambda dev, x, m, w, n: D.sdp_forward_nll(pick[dev]["dp"], x, m, w, cfg=cfg, g=None, noise=n),
+         x, x_mask, w, e_q, grad_of=lambda d: [pick[d]["dp"]["post_pre"]["w"], pick[d]["dp"]["pre"]["w"]])
+
+    pick_d = {"cpu": params_d, "cuda": dcu}
+    y = torch.from_numpy(batch["audio"][:, :cfg.segment_size])
+    y_hat = (0.5 * y + 0.1 * torch.randn(y.shape, generator=g)).requires_grad_(True)
+
+    def gen_side(dev, y, y_hat):
+        _, dg, _, _ = DS.mpd_apply(pick_d[dev], y, y_hat)
+        return LS.generator_loss(dg)[0]
+
+    def feature_side(dev, y, y_hat):
+        _, _, fr, fg = DS.mpd_apply(pick_d[dev], y, y_hat)
+        return LS.feature_loss(fr, fg)
+
+    def disc_side(dev, y, y_hat):
+        dr, dg, _, _ = DS.mpd_apply(pick_d[dev], y, y_hat)
+        return LS.discriminator_loss(dr, dg)[0]
+
+    d_leaves = lambda d: [pick_d[d]["disc_p"][0]["convs"][2]["w"], pick_d[d]["disc_s"]["convs"][3]["w"]]  # noqa: E731
+    both("mpd_apply + generator loss", gen_side, y, y_hat, grad_of=d_leaves)
+    both("mpd_apply + feature loss", feature_side, y, y_hat, grad_of=d_leaves,
+         grad_rtol=FEATURE_GRAD_RTOL)
+    both("mpd_apply + discriminator loss", disc_side, y, y_hat.detach(),
+         grad_of=lambda d: [pick_d[d]["disc_p"][4]["convs"][1]["w"], pick_d[d]["disc_s"]["conv_post"]["w"]])
+    if "dur_disc" in params_d:
+        logw = torch.randn((2, t_x, 1), generator=g)
+        both("dur_disc_apply", lambda dev, x, lw, m: DS.dur_disc_apply(pick_d[dev]["dur_disc"], x, lw, m),
+             x, logw.requires_grad_(True), x_mask,
+             grad_of=lambda d: [pick_d[d]["dur_disc"]["conv1"]["w"]])
+    z_p, logs_q, m_p = (torch.randn((2, 50, 8), generator=g).requires_grad_(True) for _ in range(3))
+    logs_p = (0.3 * torch.randn((2, 50, 8), generator=g)).requires_grad_(True)
+    km = (torch.arange(50)[None, :] < torch.tensor([50, 31])[:, None])[..., None].float()
+    both("kl_loss", lambda dev, *t: LS.kl_loss(*t), z_p, logs_q, m_p, logs_p, km, grad_of=lambda d: [])
+
+    # MAS: the card's path against maximum_path_numpy on the same scores
+    t_y = int(lens.max())
+    neg = torch.randn((2, t_y, t_x), generator=g) * 5
+    x_len, y_len = torch.from_numpy(batch["id_lengths"]), lens
+    got = MAS.maximum_path(neg.cuda(), x_len.cuda(), y_len.cuda()).cpu().numpy()
+    ref = MAS.maximum_path_numpy(neg.numpy(), x_len.numpy(), y_len.numpy())
+    n_diff = int((got.argmax(-1) != ref.argmax(-1)).sum())
+    check(np.array_equal(got, ref), f"maximum_path on the card equals maximum_path_numpy on "
+                                    f"(2, {t_y}, {t_x}) scores ({n_diff} frames differ)")
+
+
+def train_step_vs_cpu(ds: Path, cfg, params_g_np, params_d_np) -> None:
+    """One train_step at the medium preset's full width, batch 2, float32
+    with TF32 off, from the same params and key on the card and on the
+    CPU: every loss within TRAIN_RTOL, equal segment starts and MAS
+    durations."""
+    import numpy as np
+    import torch
+
+    from piper_tpu_torch.ops import prng
+    from piper_tpu_torch.train.step import make_train_state, train_step
+
+    batch = train_batch(ds, cfg, 2, shortest=True)
+    out = {}
+    for role, dev in (("cpu", "cpu"), ("card", "cuda")):
+        t0 = time.perf_counter()
+        state = make_train_state(params_g_np, params_d_np, cfg, device=dev)
+        _, m = train_step(state, _to(batch, dev), prng.prng_key(11, dev), cfg=cfg)
+        out[role] = {k: v.cpu() for k, v in m.items()}
+        print(f"phase 7: train_step on the {dev}, medium, batch 2 (frames {batch['spec_lengths'].tolist()}), "
+              f"float32: {time.perf_counter() - t0:.2f} s with set-up", flush=True)
+    dur_c, dur_g = out["cpu"].pop("attn_durations"), out["card"].pop("attn_durations")
+    sl_c, sl_g = out["cpu"].pop("ids_slice"), out["card"].pop("ids_slice")
+    n_frames = int((dur_c - dur_g).abs().sum())
+    check(torch.equal(dur_c, dur_g) and torch.equal(sl_c, sl_g),
+          f"train_step card vs CPU: equal MAS durations ({n_frames} frames of "
+          f"{int(dur_c.sum())} moved) and segment starts {sl_g.tolist()}")
+    for k in sorted(out["cpu"]):
+        a, b = float(out["card"][k]), float(out["cpu"][k])
+        check(np.isfinite(a) and abs(a - b) <= TRAIN_RTOL * abs(b),
+              f"train_step card vs CPU: {k} {a:.6g} vs {b:.6g} (rtol {TRAIN_RTOL})")
+
+
+def train_cli(ds: Path, tmp: Path, card: str) -> None:
+    """python -m piper_tpu_torch.train on the card, in this process (its
+    main() with a command line, as run_cli runs the CLI): 4 steps with a
+    checkpoint at 2, a validation pass and an export, at one bucket
+    shape; --resume to 6 steps; the exported voice through python -m
+    piper_tpu_torch."""
+    import numpy as np
+    import torch
+
+    from piper_tpu_torch.train.__main__ import main as train_main
+
+    ckpt = tmp / "ckpt"
+    common = ["--dataset-dir", str(ds), "--checkpoint-dir", str(ckpt), "--batch-size", "4",
+              "--single-bucket", "--log-steps", "1", "--checkpoint-steps", "2",
+              "--validate-steps", "4", "--export-every", "4"]
+    for extra in (["--max-steps", "4"], ["--max-steps", "6", "--resume"]):
+        t0 = time.perf_counter()
+        train_main(common + extra)
+        print(f"phase 7: python -m piper_tpu_torch.train {' '.join(extra)}: "
+              f"{time.perf_counter() - t0:.1f} s  [{card}]", flush=True)
+    rows = [json.loads(line) for line in (ckpt / "metrics.jsonl").read_text().splitlines()]
+    steps = [r["step"] for r in rows if "loss_gen_all" in r]
+    finite = all(np.isfinite(v) for r in rows for k, v in r.items() if k.startswith("loss"))
+    check(steps == [1, 2, 3, 4, 5, 6] and finite,
+          f"trainer: steps {steps} (the second run resumed at 4), every loss finite")
+    val = [r for r in rows if "val_mel_l1" in r]
+    check(len(val) >= 1 and (ckpt / "samples" / "4" / "val_0.wav").exists(),
+          f"trainer: validation at step 4 through infer on the card ({val})")
+    print(f"phase 7: trainer losses by step: "
+          f"{[(r['step'], r['loss_gen_all'], r['loss_disc_all'], r['loss_mel']) for r in rows if 'loss_mel' in r]}"
+          f"  [{card}]", flush=True)
+    s2, s6 = (torch.load(ckpt / f"state_{n}.pt", weights_only=True) for n in (2, 6))
+    moved = not torch.equal(s2["params_g"]["dec"]["conv_pre"]["w"], s6["params_g"]["dec"]["conv_pre"]["w"])
+    check(s6["step"] == 6 and s6["opt_g"]["count"] == 6 and moved,
+          "trainer: checkpoint at step 6 after --resume, optimizer count 6, params changed since step 2")
+    voice = tmp / "trained.npz"
+    shutil.copy(ckpt / "voice_6.npz", voice)
+    shutil.copy(ds / "config.json", str(voice) + ".json")
+    wav = tmp / "trained.wav"
+    run_cli(["-m", str(voice), "-f", str(wav), "--seed", "1"], ["The trained voice speaks."])
+    raw, sr, pcm = read_wav(wav)
+    check(raw[:4] == b"RIFF" and sr == 22050 and len(pcm) > 0 and len(pcm) % 256 == 0
+          and int(np.abs(pcm).max()) > 0,
+          f"the exported voice speaks through python -m piper_tpu_torch: {len(pcm)} samples at {sr} Hz")
+
+
+def step_costs(ds: Path, cfg, params_g_np, params_d_np, card: str, rows: int = 8) -> None:
+    """Warm step time at the medium preset in both precisions, batch
+    `rows` (one bucket of the dataset), MAS's share of it (the DP at this
+    batch's shape alone), peak memory, and one profiled step: the
+    device's busy time (the sum of kernel time), its kernel launches and
+    its top kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from piper_tpu_torch.ops import mas as MAS
+    from piper_tpu_torch.ops import prng
+    from piper_tpu_torch.train.step import make_train_state, train_step
+
+    batch = _to(train_batch(ds, cfg, rows), "cuda")
+    b, t_x = batch["ids"].shape
+    t_y = batch["spec"].shape[1]
+    for precision, dtype in (("fast", torch.bfloat16), ("parity", torch.float32)):
+        state = make_train_state(params_g_np, params_d_np, cfg, device="cuda")
+        key = prng.prng_key(3, "cuda")
+        for i in range(2):  # warm-up: cuDNN's and cuBLAS's first calls at these shapes
+            train_step(state, batch, prng.fold_in(key, i), cfg=cfg, dtype=dtype)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for i in range(4):
+            t0 = time.perf_counter()
+            _, m = train_step(state, batch, prng.fold_in(key, 10 + i), cfg=cfg, dtype=dtype)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        check(all(math.isfinite(float(v)) for k, v in m.items() if k.startswith("loss")),
+              f"train_step {precision} on the card: finite losses after 6 steps")
+        neg = torch.randn((b, t_y, t_x), device="cuda")
+        mas_times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            MAS.maximum_path(neg, batch["id_lengths"], batch["spec_lengths"])
+            torch.cuda.synchronize()
+            mas_times.append(time.perf_counter() - t0)
+        step_ms, mas_ms = 1e3 * min(times), 1e3 * min(mas_times)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            train_step(state, batch, prng.fold_in(key, 20), cfg=cfg, dtype=dtype)
+            torch.cuda.synchronize()
+            prof_ms = 1e3 * (time.perf_counter() - t0)
+        events = [e for e in prof.key_averages() if str(getattr(e, "device_type", "")).endswith("CUDA")]
+        busy = sum(e.self_device_time_total for e in events) / 1e3
+        top = [[e.key[:48], round(e.self_device_time_total / 1e3, 2), e.count]
+               for e in sorted(events, key=lambda e: -e.self_device_time_total)[:6]]
+        print(f"phase 7: train_step {precision}, medium, batch {b} ({t_x} ids, {t_y} frames): "
+              f"{sorted(1e3 * t for t in times)} ms, best {step_ms:.1f} ms; MAS alone at ({b}, {t_y}, "
+              f"{t_x}) {mas_ms:.1f} ms ({mas_ms / step_ms:.1%} of the step); peak memory {peak:.2f} GiB; "
+              f"profiled step: device busy {busy:.1f} ms of {prof_ms:.1f} ms wall, "
+              f"{sum(e.count for e in events)} kernels, top {top}  [{card}]", flush=True)
+        del state
+
+
+def variant_steps(ds: Path, card: str) -> None:
+    """One in-process train_step each of a two-speaker VITS2 model and an
+    MB-iSTFT model at the medium preset's width, on the card."""
+    import torch
+
+    from piper_tpu_torch.config import ModelConfig
+    from piper_tpu_torch.ops import prng
+    from piper_tpu_torch.train.step import init_params, make_train_state, train_step
+
+    for name, cfg in (("vits2", ModelConfig.vits2("medium", num_symbols=256, num_speakers=2)),
+                      ("mb_istft", ModelConfig.mb_istft("medium", num_symbols=256))):
+        batch = train_batch(ds, cfg, 4)
+        if cfg.num_speakers > 1:
+            batch["sid"] = (torch.arange(4) % 2).numpy().astype("int32")
+        g, d = init_params(5, cfg)
+        state = make_train_state(g, d, cfg, device="cuda")
+        t0 = time.perf_counter()
+        _, m = train_step(state, _to(batch, "cuda"), prng.prng_key(2, "cuda"), cfg=cfg,
+                          dtype=torch.bfloat16)
+        losses = {k: float(v) for k, v in m.items() if k.startswith("loss")}
+        check(all(math.isfinite(v) for v in losses.values()) and ("loss_dur_gen" in losses) == (name == "vits2"),
+              f"{name} train_step on the card, medium, batch 4, fast: finite losses "
+              f"{ {k: round(v, 4) for k, v in losses.items()} } in {time.perf_counter() - t0:.2f} s (cold)")
+
+
+def seeded_noise_on_card() -> None:
+    """The device noise of fixed keys equals the port's CPU noise: the
+    bits exactly, the normals within 1e-6."""
+    import torch
+
+    from piper_tpu_torch.ops import prng
+    from piper_tpu_torch.runtime import voice as RV
+
+    keys = RV.key_table([RV.utterance_seed(s, [1, 0, 40 + i, 0, 2])
+                         for i, s in enumerate((0, 1, 2**32 - 1, 77))])
+    devs = (("cpu", "cpu"), ("card", "cuda"))
+    bits = {r: prng.random_bits(keys.to(d), (3, 5, 7)).cpu() for r, d in devs}
+    fn = {r: RV.frame_noise_rows(keys.to(d), 700, 192).cpu() for r, d in devs}
+    dn = {r: RV.duration_noise_rows(keys.to(d), 90).cpu() for r, d in devs}
+    err = max(float((fn["card"] - fn["cpu"]).abs().max()), float((dn["card"] - dn["cpu"]).abs().max()))
+    check(torch.equal(bits["card"], bits["cpu"]) and err <= 1e-6,
+          f"seeded noise: the card's threefry bits equal the CPU's, frame and duration normals "
+          f"within {err:.2e} (<= 1e-6)")
+
+
+def phase_training(card: str) -> None:
+    """Phase 7 (see the module docstring)."""
+    from piper_tpu_torch.config import ModelConfig
+    from piper_tpu_torch.train.dataset import write_synthetic_dataset
+    from piper_tpu_torch.train.step import init_params
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        ds = write_synthetic_dataset(tmp / "data", n_utterances=TRAIN_UTTERANCES, sample_rate=22050,
+                                     num_symbols=256, seconds=(1.5, 4.0), ids=(30, 90), seed=0)
+        cfg = ModelConfig.for_quality("medium", num_symbols=256)
+        params_g, params_d = init_params(1, cfg)
+        seeded_noise_on_card()
+        from piper_tpu_torch.train.step import make_train_state
+
+        cpu = make_train_state(params_g, params_d, cfg, device="cpu")
+        train_modules_vs_cpu(ds, cfg, cpu.params_g, cpu.params_d)
+        del cpu
+        train_step_vs_cpu(ds, cfg, params_g, params_d)
+        step_costs(ds, cfg, params_g, params_d, card)
+        variant_steps(ds, card)
+        train_cli(ds, tmp, card)
+
+
 SPANNED = ("submit", "_encode", "_read_frames", "_latents", "_flow")
 
 
@@ -1798,47 +2207,55 @@ def main(argv) -> int:
     tf32_off()  # float32 without TF32 everywhere, as every TorchVoice leaves it
 
     # 1. the card, versions, kernel build
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
-    name = torch.cuda.get_device_name(0)
-    part, peaks = peaks_for(name)
-    print(smi)
-    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {name} "
-          f"({torch.cuda.get_device_properties(0).multi_processor_count} SMs); "
-          f"peaks used for bounds: {part} {peaks}")
-    t0 = time.perf_counter()
-    V.build()
-    print(f"kernel build (nvcc, both sources in parallel): {time.perf_counter() - t0:.2f} s")
-    for n, log in V.BUILD_LOG.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line or "Compiling entry" in line:
-                print(f"  {n}: {line.strip()}")
-    sass_tensor_cores(V)
+    with phase("1, the card and the kernels' build"):
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True, timeout=60,
+        ).stdout.strip().splitlines()[0]
+        name = torch.cuda.get_device_name(0)
+        part, peaks = peaks_for(name)
+        print(smi)
+        print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {name} "
+              f"({torch.cuda.get_device_properties(0).multi_processor_count} SMs); "
+              f"peaks used for bounds: {part} {peaks}")
+        t0 = time.perf_counter()
+        V.build()
+        print(f"kernel build (nvcc, both sources in parallel): {time.perf_counter() - t0:.2f} s")
+        for n, log in V.BUILD_LOG.items():
+            for line in log.splitlines():
+                if "registers" in line or "spill" in line or "smem" in line or "Compiling entry" in line:
+                    print(f"  {n}: {line.strip()}")
+        sass_tensor_cores(V)
 
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
         cfg, params_np = make_voice(tmp)
-        # 2. kernels against plain versions
-        results = phase_kernels(cfg, params_np, peaks)
-        # 3. main path, and the benchmark CLI on the same voice
-        launches, hifigan_ms = phase_main_path(tmp, cfg, params_np, smi)
-        phase_benchmark(tmp, smi)
-        # 4. serving path
-        phase_serving(cfg, params_np, smi, peaks)
-        # 5. published voices
-        phase_published_files(tmp, cfg, params_np, smi)
-    phase_two_speakers(smi)
-    phase_long_row(cfg, params_np, smi, peaks)
+        with phase("2, kernels against their plain versions"):
+            results = phase_kernels(cfg, params_np, peaks)
+        with phase("3, the main path (CLI) and the benchmark CLI"):
+            launches, hifigan_ms = phase_main_path(tmp, cfg, params_np, smi)
+            phase_benchmark(tmp, smi)
+        with phase("4, the serving path"):
+            phase_serving(cfg, params_np, smi, peaks)
+        with phase("5, published voices"):
+            phase_published_files(tmp, cfg, params_np, smi)
+            phase_two_speakers(smi)
+            phase_long_row(cfg, params_np, smi, peaks)
     # 6. VITS2 and MB-iSTFT voices; the kernels' launches are summed
     # over the main paths of phase 3 and of this phase's CLI runs
-    with tempfile.TemporaryDirectory() as tmp:
+    with phase("6, VITS2 and MB-iSTFT voices"), tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
         for variant, (path, vcfg, vparams) in write_variant_voices(tmp / "voices").items():
             for k, n in phase_variant(tmp, variant, path, vcfg, vparams, smi, hifigan_ms).items():
                 launches[k] += n
+    with phase("7, training on the card"):
+        phase_training(smi)
 
+    if FAILURES:
+        for stream in (sys.stdout, sys.stderr):
+            print(f"chip_smoke: {len(FAILURES)} check(s) failed:", *FAILURES, sep="\n  ",
+                  file=stream, flush=True)
+        return 1
     kernels = []
     for kname in ("mrf_fused", "fused_upsample_mrf"):
         row = dict(results[(kname, "bfloat16")])
@@ -1846,14 +2263,11 @@ def main(argv) -> int:
         for key in ("gflop", "mbytes"):
             row.pop(key)
         kernels.append(row)
-    if FAILURES:
-        print(f"chip_smoke: {len(FAILURES)} check(s) failed:", *FAILURES, sep="\n  ", file=sys.stderr)
-        return 1
+    print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0
-
 
 if __name__ == "__main__":
     sys.exit(main(sys.argv[1:]))

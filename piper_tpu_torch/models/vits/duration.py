@@ -1,7 +1,8 @@
-"""Duration predictors (inference paths).
+"""Duration predictors.
 
 Counterpart of piper_tpu/models/vits/duration.py: sdp_reverse (line
-139), conv_flow_apply (line 47) and dp_apply (line 275). Parity:
+139), sdp_forward_nll (line 186, training), conv_flow_apply (line 47)
+and dp_apply (line 275). Parity:
 reference StochasticDurationPredictor (models.py:14-117) and
 DurationPredictor (models.py:120-165).
 
@@ -16,6 +17,7 @@ import math
 from typing import Any, Dict, Optional
 
 import torch
+import torch.nn.functional as F
 
 from ...config import ModelConfig
 from ...ops.spline import rational_quadratic_spline
@@ -115,6 +117,70 @@ def sdp_reverse(
     return z[..., 0:1]
 
 
+def sdp_forward_nll(
+    p: Params,
+    x: torch.Tensor,
+    x_mask: torch.Tensor,
+    w: torch.Tensor,
+    *,
+    cfg: ModelConfig,
+    g: Optional[torch.Tensor],
+    noise: torch.Tensor,
+) -> torch.Tensor:
+    """Training NLL of durations w (B, T, 1) (models.py:72-107), float32.
+    The condition x and g are detached, as in the JAX package: the
+    duration loss trains the predictor only. noise: (B, T, 2) standard
+    normal (the JAX package draws it from its `rng` argument).
+
+    Returns per-example nll + logq, shape (B,).
+    """
+    x = x.detach().float()
+    if g is not None:
+        g = g.detach()
+    x_mask = x_mask.float()
+    w = w.float()
+    h = _sdp_context(p, x, x_mask, kernel_size=cfg.kernel_size, g=g)
+
+    # posterior flows (variational dequantization of integer durations)
+    h_w = L.dense(p["post_pre"], w)
+    h_w = L.ddsconv_apply(p["post_convs"], h_w, x_mask, kernel_size=cfg.kernel_size)
+    h_w = L.dense(p["post_proj"], h_w) * x_mask
+
+    e_q = noise.float() * x_mask
+    z_q, logdet_tot_q = L.elementwise_affine(p["post_flows"]["affine"], e_q, x_mask, reverse=False)
+    for cf in p["post_flows"]["conv_flows"]:  # EA, then 4x(CF, Flip)
+        z_q, ld = conv_flow_apply(cf, z_q, x_mask, kernel_size=cfg.kernel_size, g=h + h_w)
+        logdet_tot_q = logdet_tot_q + ld
+        z_q = L.flip_channels(z_q)
+
+    z_u, z1 = z_q[..., 0:1], z_q[..., 1:2]
+    u = torch.sigmoid(z_u) * x_mask
+    z0 = (w - u) * x_mask
+    logdet_tot_q = logdet_tot_q + torch.sum(
+        (F.logsigmoid(z_u) + F.logsigmoid(-z_u)) * x_mask, dim=(1, 2)
+    )
+    logq = (
+        torch.sum(-0.5 * (math.log(2 * math.pi) + e_q.square()) * x_mask, dim=(1, 2))
+        - logdet_tot_q
+    )
+
+    # main flows forward: Log, EA, 4x(CF, Flip)
+    z0_log = torch.log(torch.clamp(z0, min=1e-5)) * x_mask
+    logdet_tot = torch.sum(-z0_log, dim=(1, 2))
+    z = torch.cat([z0_log, z1], dim=-1)
+    z, ld = L.elementwise_affine(p["flows"]["affine"], z, x_mask, reverse=False)
+    logdet_tot = logdet_tot + ld
+    for cf in p["flows"]["conv_flows"]:
+        z, ld = conv_flow_apply(cf, z, x_mask, kernel_size=cfg.kernel_size, g=h)
+        logdet_tot = logdet_tot + ld
+        z = L.flip_channels(z)
+    nll = (
+        torch.sum(0.5 * (math.log(2 * math.pi) + z.square()) * x_mask, dim=(1, 2))
+        - logdet_tot
+    )
+    return nll + logq
+
+
 def dp_apply(
     p: Params,
     x: torch.Tensor,
@@ -123,9 +189,12 @@ def dp_apply(
     cfg: ModelConfig,
     g: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Deterministic duration predictor (models.py:120-165)."""
+    """Deterministic duration predictor (models.py:120-165). Its
+    condition x and g are detached, as in the JAX package (duration.py:
+    284-286): the duration loss trains the predictor only."""
+    x = x.detach()
     if g is not None:
-        x = x + L.dense(p["cond"], g[:, None, :])
+        x = x + L.dense(p["cond"], g.detach()[:, None, :])
     pad = cfg.kernel_size // 2
     x = L.conv(p["conv1"], x * x_mask, padding=pad)
     x = torch.relu(x)

@@ -34,6 +34,7 @@ from . import encoder as E
 from . import flow as F
 from . import generator as G
 from . import istft_generator as MB
+from . import posterior as Q
 
 Params = Dict[str, Any]
 
@@ -44,6 +45,23 @@ def speaker_embedding(
     if cfg.num_speakers <= 1 or sid is None:
         return None
     return params["emb_g"]["weight"][sid.long()]  # (B, gin)
+
+
+def apply_decoder(
+    params: Params,
+    z: torch.Tensor,
+    y_mask: Optional[torch.Tensor],
+    *,
+    cfg: ModelConfig,
+    g: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The plain, differentiable vocoder, as the JAX package dispatches
+    it (model.py:70-83): HiFiGAN's generator_apply or the MB-iSTFT
+    generator. Training decodes through it; no CUDA kernel runs here,
+    as no Pallas kernel runs in the JAX training forward."""
+    if cfg.vocoder == "mb_istft":
+        return MB.mb_istft_generator_apply(params["dec"], z, y_mask, cfg=cfg, g=g)
+    return G.generator_apply(params["dec"], z, y_mask, cfg=cfg, g=g)
 
 
 class EncodeResult(NamedTuple):
@@ -84,6 +102,32 @@ def synthesizer_encode(
     return EncodeResult(m_p, logs_p, durations, x_mask)
 
 
+def expand_prior(
+    enc: EncodeResult, num_frames: int, frame_offset: int = 0
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The prior's mean and log-std per frame (models.py:705-716):
+    (m_p, logs_p (B, num_frames, C), y_mask (B, num_frames, 1))."""
+    m_p, y_mask = expand_by_duration(enc.m_p, enc.durations, num_frames, frame_offset)
+    logs_p, _ = expand_by_duration(enc.logs_p, enc.durations, num_frames, frame_offset)
+    return m_p, logs_p, y_mask.to(m_p.dtype)
+
+
+def sample_latents(
+    m_p: torch.Tensor,
+    logs_p: torch.Tensor,
+    y_mask: torch.Tensor,
+    frame_noise: torch.Tensor,
+    noise_scale,
+) -> torch.Tensor:
+    """z_p = m_p + noise * exp(logs_p) * noise_scale, masked
+    (models.py:717-718). The scale is cast to the compute dtype first, as
+    the JAX package casts it (model.py:171), and may be a tensor (a CUDA
+    graph's input)."""
+    scale = torch.as_tensor(noise_scale, device=m_p.device).to(m_p.dtype)
+    z_p = m_p + frame_noise.to(m_p.dtype) * torch.exp(logs_p) * scale
+    return z_p * y_mask
+
+
 def synthesizer_latents(
     params: Params,
     enc: EncodeResult,
@@ -98,11 +142,8 @@ def synthesizer_latents(
 
     frame_noise: (B, num_frames, C) standard normal. Returns
     (z_p (B, num_frames, C), y_mask (B, num_frames, 1))."""
-    m_p, y_mask = expand_by_duration(enc.m_p, enc.durations, num_frames, frame_offset)
-    logs_p, _ = expand_by_duration(enc.logs_p, enc.durations, num_frames, frame_offset)
-    y_mask = y_mask.to(m_p.dtype)
-    z_p = m_p + frame_noise.to(m_p.dtype) * torch.exp(logs_p) * noise_scale
-    return z_p * y_mask, y_mask
+    m_p, logs_p, y_mask = expand_prior(enc, num_frames, frame_offset)
+    return sample_latents(m_p, logs_p, y_mask, frame_noise, noise_scale), y_mask
 
 
 def synthesizer_flow(
@@ -229,13 +270,18 @@ def infer(
 
 
 # ---------------------------------------------------------------------------
-# Random weights (smoke runs and benchmarks): numpy trees in the JAX
-# package's layouts, with the distributions of its initialisers
-# (models/vits/*.py init_*). Not bitwise the JAX draws.
+# Random weights (smoke runs, benchmarks and training from scratch): numpy
+# trees in the JAX package's layouts, with the distributions of its
+# initialisers (models/vits/*.py init_*), layer by layer. Not bitwise
+# the JAX draws.
 # ---------------------------------------------------------------------------
 
 
-class _Init:
+class Init:
+    """Numpy draws of the JAX initialisers' distributions (layers.py:30-73):
+    kaiming-uniform convs and dense layers, HiFiGAN's normal(0, 0.01),
+    zeroed layers, unit layer norms."""
+
     def __init__(self, seed: int):
         self.rng = np.random.default_rng(seed)
 
@@ -286,12 +332,13 @@ class _Init:
         return p
 
 
-def init_synthesizer_params(seed: int, cfg: ModelConfig) -> Params:
+def init_synthesizer_params(seed: int, cfg: ModelConfig, *, training: bool = False) -> Params:
     """Random-weight inference tree for `cfg` (numpy leaves): VITS or
     VITS2 (flow_transformer: attn and attn_norm in every coupling layer;
     speaker_cond_encoder: enc_p.cond), HiFiGAN or MB-iSTFT (conv_post of
-    subbands * (n_fft + 2) outputs with a bias)."""
-    r = _Init(seed)
+    subbands * (n_fft + 2) outputs with a bias). `training` adds the
+    posterior encoder enc_q (model.py:38-56)."""
+    r = Init(seed)
     h, ic, fc = cfg.hidden_channels, cfg.inter_channels, cfg.filter_channels
     kd = h ** -0.5
 
@@ -400,4 +447,6 @@ def init_synthesizer_params(seed: int, cfg: ModelConfig) -> Params:
     p: Params = {"enc_p": enc_p, "dp": dp, "flow": flow, "dec": dec}
     if cfg.num_speakers > 1:
         p["emb_g"] = {"weight": r.normal((cfg.num_speakers, cfg.gin_channels), 1.0)}
+    if training:
+        p["enc_q"] = Q.init_posterior_encoder(r, cfg)
     return p

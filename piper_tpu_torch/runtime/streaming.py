@@ -15,9 +15,15 @@ chunk_frames + 2 * pad_frames frames under a length mask
 replay (runtime/graphs.py): the flows, the generator's plain stages in
 their fixed-shape mode and both kernels, about 250 launches eagerly.
 The latents of any frame count come from one call, with the batch
-path's own noise (utterance_seed, duration_noise, frame_noise), so one
-branch serves every length and a seeded utterance gets the same
-durations streamed and batched.
+path's own keys and noise (utterance_seed: JAX's keys, drawn on the
+device), so one branch serves every length and a seeded utterance gets
+JAX's durations, and the same latents streamed and batched. That last
+part is a deliberate divergence: the JAX package's short-form stream
+draws normal(fold_in(key, 1), (1, T, C)) for its latents
+(piper_tpu/runtime/streaming.py:139-145), other noise than its batch
+path's per-frame keys, and promises equal durations only (its
+:122-125); the port keeps a streamed utterance equal to the same
+utterance batched.
 """
 
 from __future__ import annotations

@@ -12,8 +12,8 @@ mu-law wire or long-form windows. A batch of id sequences runs as
      (piper_tpu/runtime/voice.py:1046-1101);
   3. each bucket's rows planned into decodes by `decode_grouping`
      (batching.plan_decode_groups: bucketed, uniform or packed), each
-     decode at its frame bucket: prior expansion and frame noise
-     eagerly, the reverse flow of each row at the frame bucket it
+     decode at its frame bucket: prior expansion eagerly, then each
+     row's frame noise, latents and reverse flow at the frame bucket it
      decodes at alone, as graph replays of flow_graph_rows(bucket) rows,
      the vocoder eagerly at the decode's longest row, since its row
      stages take each row's length on the host: the time-major
@@ -38,18 +38,20 @@ unseeded requests' seeds is guarded by a lock, and the graphs by theirs
 cost (PERF.md), so both precisions run under the same process-wide
 flags and no call switches them.
 
-Noise: every utterance draws its own noise from (seed, crc32(ids)), as
-TpuVoice._content_hashes does (voice.py:923): duration noise for its own
-ids, frame noise in blocks of NOISE_BLOCK frames, each block seeded by
-its index. An utterance's audio therefore depends neither on the batch
-it rides in nor on the frame count it is decoded at (the two properties
-of voice.py:262-331). Noise is drawn on the host with torch's CPU
-generator and copied to the device, so the CPU and the card see the same
-numbers. A row's bits are its solo bits in either precision: the
-encodes run at one row count (ENCODE_ROWS), the flow at the row's own
-frame bucket at one row count per bucket (flow_graph_rows), and
-conv_pre and the generator's plain stages (all of MB-iSTFT's) run row by
-row (PERF.md).
+Noise: every utterance draws JAX's own random streams (ops/prng.py)
+from JAX's key, fold_in(PRNGKey(seed), crc32(ids)) (TpuVoice._utt_keys,
+voice.py:923-945): duration noise normal(fold_in(key, 0), (T_x, 2))
+(voice.py:274-277), and frame i's noise normal(fold_in(fold_in(key, 1),
+i), (C,)) (row_noise, voice.py:314-324). So a seeded utterance gets the
+JAX package's noise, and its audio depends neither on the batch it
+rides in nor on the frame count it is decoded at (the two properties of
+voice.py:262-331). The host computes each row's key (one threefry) and
+uploads the keys with the ids; the noise is drawn on the device, inside
+the encode graph and the flow graphs. A row's bits are its solo bits in
+either precision: the encodes run at one row count (ENCODE_ROWS), the
+flow at the row's own frame bucket at one row count per bucket
+(flow_graph_rows), and conv_pre and the generator's plain stages (all
+of MB-iSTFT's) run row by row (PERF.md).
 """
 
 from __future__ import annotations
@@ -69,6 +71,7 @@ from ..config import InferenceDefaults, ModelConfig, SynthesisConfig, VoiceConfi
 from ..models.vits import generator as G
 from ..models.vits import istft_generator as MB
 from ..models.vits import model as M
+from ..ops import prng
 from ..ops.cuda import vocoder as V
 from ..text.phonemes import phonemes_to_ids
 from ..text.phonemize import phonemize
@@ -80,7 +83,6 @@ from . import batching
 from .graphs import GraphCache
 from .wav import audio_float_to_int16, int16_to_float
 
-NOISE_BLOCK = 64  # frames per frame-noise block
 # Rows of every encode: a phoneme bucket's rows run in slices of this
 # many, padded with copies of the slice's first row, so a row's bits
 # never depend on how many rows share its bucket (cuBLAS and cuDNN pick
@@ -173,31 +175,45 @@ def _split_phonemes(phones: List[str], max_ids: int, id_cost) -> List[List[str]]
 
 
 def utterance_seed(seed: int, ids: Sequence[int]) -> int:
-    """The (seed, content hash) key of one utterance's noise. The seed is
-    taken mod 2^32, as everywhere (solo, batcher rows, streaming)."""
+    """JAX's key of one utterance's noise, fold_in(PRNGKey(seed),
+    crc32(ids) & 0x7FFFFFFF) (TpuVoice._utt_keys, voice.py:935-945),
+    packed into one int: the key's first word above its second. The seed
+    is taken mod 2^32, as everywhere (solo, batcher rows, streaming)."""
     crc = zlib.crc32(np.asarray(ids, np.int32).tobytes()) & 0x7FFFFFFF
-    return ((seed & 0xFFFFFFFF) << 31) | crc
+    # fold_in of PRNGKey(seed) = (0, seed mod 2^32), in Python ints
+    k0, k1 = prng.threefry2x32(0, seed & prng.MASK, 0, crc)
+    return k0 << 32 | k1
 
 
-def _draw(key: int, stream: int, shape) -> torch.Tensor:
-    state = np.random.SeedSequence([key, stream]).generate_state(2, np.uint32)
-    gen = torch.Generator().manual_seed(int(state[0]) << 32 | int(state[1]))
-    return torch.randn(shape, generator=gen)
+def key_table(keys: Sequence[int]) -> torch.Tensor:
+    """(rows, 2) int64 words of packed keys (utterance_seed's), on the host."""
+    return torch.tensor([[k >> 32, k & prng.MASK] for k in keys], dtype=torch.int64).reshape(-1, 2)
+
+
+def duration_noise_rows(keys: torch.Tensor, n_ids: int) -> torch.Tensor:
+    """(rows, n_ids, 2) duration noise of a (rows, 2) key table:
+    normal(fold_in(key, 0), (n_ids, 2)) per row (voice.py:274-277). Id i's
+    noise does not depend on n_ids (the phoneme bucket)."""
+    return prng.normal(prng.fold_in(keys, 0), (n_ids, 2))
+
+
+def frame_noise_rows(keys: torch.Tensor, num_frames: int, channels: int) -> torch.Tensor:
+    """(rows, num_frames, channels) frame noise of a (rows, 2) key table:
+    frame i's is normal(fold_in(fold_in(key, 1), i), (channels,))
+    (voice.py:314-324), so it depends only on (key, i)."""
+    frames = torch.arange(num_frames, device=keys.device)
+    return prng.normal(prng.fold_in(prng.fold_in(keys, 1)[:, None, :], frames), (channels,))
 
 
 def duration_noise(key: int, n_ids: int) -> torch.Tensor:
     """(n_ids, 2) standard normal for the stochastic duration predictor."""
-    return _draw(key, 0, (n_ids, 2))
+    return duration_noise_rows(key_table([key]), n_ids)[0]
 
 
 def frame_noise(key: int, num_frames: int, channels: int) -> torch.Tensor:
     """(num_frames, channels) standard normal; frame f's noise depends
     only on (key, f), never on num_frames."""
-    n_blocks = -(-num_frames // NOISE_BLOCK)
-    blocks = [_draw(key, 1 + j, (NOISE_BLOCK, channels)) for j in range(n_blocks)]
-    if not blocks:
-        return torch.zeros((0, channels))
-    return torch.cat(blocks)[:num_frames]
+    return frame_noise_rows(key_table([key]), num_frames, channels)[0]
 
 
 class TorchVoice:
@@ -479,42 +495,60 @@ class TorchVoice:
         keeps the block until the copy has run)."""
         return torch.zeros(shape, dtype=dtype, pin_memory=self.device.type == "cuda")
 
-    def _encode_step(self, ids, lengths, dur_noise, scales, sid):
-        """The encode graph's function: text encoder + duration predictor
-        over ENCODE_ROWS padded rows, and each row's frame count."""
+    def _encode_step(self, ids, lengths, keys, scales, sid):
+        """The encode graph's function: each row's duration noise from its
+        key, then text encoder + duration predictor over ENCODE_ROWS
+        padded rows, and each row's frame count."""
         enc = M.synthesizer_encode(
             self.params, ids, lengths, cfg=self.model_cfg, noise_w_scale=scales[0],
-            length_scale=scales[1], dur_noise=dur_noise, sid=sid, dtype=self.dtype,
+            length_scale=scales[1], dur_noise=duration_noise_rows(keys, ids.shape[1]),
+            sid=sid, dtype=self.dtype,
         )
         return (*enc, enc.durations.sum(dim=-1))
 
-    def _flow_step(self, z_p, y_mask, sid):
-        """The flow graph's function: reverse flow over a graph's rows at
-        their frame bucket (the generator after it runs eagerly: its row
-        stages take host lengths)."""
+    def _latents_step(self, m_p, logs_p, y_mask, keys, noise_scale):
+        """The latents graph's function: each row's frame noise from its
+        key, and z_p (models.py:717-718)."""
+        noise = frame_noise_rows(keys, m_p.shape[1], m_p.shape[2])
+        return (M.sample_latents(m_p, logs_p, y_mask, noise, noise_scale),)
+
+    def _flow_step(self, m_p, logs_p, y_mask, keys, noise_scale, sid):
+        """The flow graph's function: the latents, then the reverse flow,
+        over a graph's rows at their frame bucket (the generator after it
+        runs eagerly: its row stages take host lengths)."""
+        (z_p,) = self._latents_step(m_p, logs_p, y_mask, keys, noise_scale)
         g = M.speaker_embedding(self.params, self.model_cfg, sid)
         return (M.synthesizer_flow(self.params, z_p, y_mask, cfg=self.model_cfg, g=g),)
 
-    def _flow(self, z_p, y_mask, sid) -> torch.Tensor:
-        """Reverse flow of rows at one frame bucket: a graph replay at
-        (frame bucket, rows) on the frame-bucket ladder, eager past it (a
+    def _graph(self, kind: str, fn, inputs, sid=None):
+        """fn over rows at one frame bucket: a graph replay at (kind,
+        frame bucket, rows) on the frame-bucket ladder, eager past it (a
         row decoded alone at its own frame count)."""
-        if z_p.shape[1] > self.frame_buckets[-1]:
-            return self._flow_step(z_p, y_mask, sid)[0]
-        key = ("flow", z_p.shape[1], z_p.shape[0], self.dtype, sid is not None)
-        return self.graphs.run(key, self._flow_step, (z_p, y_mask, sid))[0]
+        m_p = inputs[0]
+        if m_p.shape[1] > self.frame_buckets[-1]:
+            return fn(*(None if x is None else x.to(self.device, non_blocking=True)
+                        for x in inputs))[0]
+        key = (kind, m_p.shape[1], m_p.shape[0], self.dtype, sid is not None)
+        return self.graphs.run(key, fn, inputs)[0]
 
-    def _flow_rows(self, z_p, y_mask, sid, frames: Sequence[int]) -> torch.Tensor:
-        """A decode's reverse flow: each row at the frame bucket it
-        decodes at alone (alone at its own frame count past the ladder),
-        the rows of one bucket in graphs of flow_graph_rows(bucket) rows,
-        each padded with copies of its first row, so a row's flow has one
-        shape alone and in any batch. Over a decode's rows at the
-        decode's bucket, cuBLAS and cuDNN pick their algorithms by the
-        rows and the bucket: a trained voice's float32 row moved against
-        the same row alone, and a bf16 row of a flow with `post`
-        perturbed (PERF.md)."""
-        z = torch.zeros_like(z_p)
+    def _flow(self, m_p, logs_p, y_mask, keys, noise_scale, sid) -> torch.Tensor:
+        """Latents and reverse flow of rows at one frame bucket."""
+        return self._graph("flow", self._flow_step, (m_p, logs_p, y_mask, keys, noise_scale, sid),
+                           sid)
+
+    def _flow_rows(self, m_p, logs_p, y_mask, keys, noise_scale, sid,
+                   frames: Sequence[int]) -> torch.Tensor:
+        """A decode's latents and reverse flow (keys: the rows' (rows, 2)
+        key table, noise_scale a (1,) tensor, both on the device): each
+        row at the frame bucket it decodes at alone (alone at its own
+        frame count past the ladder), the rows of one bucket in graphs of
+        flow_graph_rows(bucket) rows, each padded with copies of its
+        first row, so a row's flow has one shape alone and in any batch.
+        Over a decode's rows at the decode's bucket, cuBLAS and cuDNN
+        pick their algorithms by the rows and the bucket: a trained
+        voice's float32 row moved against the same row alone, and a bf16
+        row of a flow with `post` perturbed (PERF.md)."""
+        z = torch.zeros_like(m_p)
         top = self.frame_buckets[-1]
         by_bucket: dict = {}
         for row, f in enumerate(frames):
@@ -526,8 +560,9 @@ class TorchVoice:
                 part = rows[lo : lo + n]
                 sel = part + part[:1] * (n - len(part))
                 out = self._flow(
-                    torch.cat([z_p[r : r + 1, :fb] for r in sel]),
-                    torch.cat([y_mask[r : r + 1, :fb] for r in sel]),
+                    *(torch.cat([x[r : r + 1, :fb] for r in sel]) for x in (m_p, logs_p, y_mask)),
+                    torch.cat([keys[r : r + 1] for r in sel]),
+                    noise_scale,
                     None if sid is None else sid[:1].repeat(n),
                 )
                 for k, r in enumerate(part):
@@ -542,8 +577,6 @@ class TorchVoice:
         and their frame counts, on the device (read them with
         _read_frames)."""
         _, length_scale, noise_w = self._scales(syn)
-        with self._span("noise"):
-            noises = [duration_noise(key, len(ids)) for ids, key in zip(rows_ids, keys)]
         outs = []
         for lo in range(0, len(rows_ids), ENCODE_ROWS):
             part = list(range(lo, min(lo + ENCODE_ROWS, len(rows_ids))))
@@ -551,12 +584,12 @@ class TorchVoice:
             with self._span("upload"):
                 ids_arr = self._host_zeros((ENCODE_ROWS, bucket), self._ids_wire_dtype)
                 lengths = self._host_zeros((ENCODE_ROWS,), torch.int32)
-                dur_noise = self._host_zeros((ENCODE_ROWS, bucket, 2))
+                key_arr = self._host_zeros((ENCODE_ROWS, 2), torch.int64)
+                key_arr[:] = key_table([keys[j] for j in order])
                 for row, j in enumerate(order):
                     n = len(rows_ids[j])
                     ids_arr[row, :n] = torch.as_tensor(rows_ids[j], dtype=self._ids_wire_dtype)
                     lengths[row] = n
-                    dur_noise[row, :n] = noises[j]
                 scales = self._host_zeros((2,))
                 scales[0], scales[1] = noise_w, length_scale
                 sid = None
@@ -566,7 +599,7 @@ class TorchVoice:
                     sid[:] = spk
             with self._span("encode"):
                 key = ("encode", bucket, ENCODE_ROWS, self.dtype, sid is not None)
-                inputs = (ids_arr, lengths, dur_noise, scales, sid)
+                inputs = (ids_arr, lengths, key_arr, scales, sid)
                 outs.append([t[: len(part)] for t in self.graphs.run(key, self._encode_step, inputs)])
         if len(outs) > 1:
             outs = [[torch.cat(ts) for ts in zip(*outs)]]
@@ -586,25 +619,28 @@ class TorchVoice:
             pos += f.shape[0]
         return out
 
-    def _latents(self, enc, keys, num_frames: int, syn: SynthesisConfig, frames=None):
-        """z_p and y_mask at num_frames, each row's frame noise from its
-        key (drawn as far as the row's own frame count when `frames` is
-        given: past it the noise is masked out). Rows of `enc` past the
-        keys (a graph's pad rows) get no noise."""
-        c = self.model_cfg.inter_channels
-        with self._span("noise"):
-            # rows of enc past len(keys) pad a graph's rows: no noise
-            fnoise = self._host_zeros((enc.m_p.shape[0], num_frames, c))
-            for row, key in enumerate(keys):
-                n = num_frames if frames is None else min(frames[row], num_frames)
-                fnoise[row, :n] = frame_noise(key, n, c)
+    def _noise_inputs(self, keys: Sequence[int], syn: SynthesisConfig):
+        """The (rows, 2) key table and the (1,) noise scale, on their way
+        to the device (pinned on CUDA, copied without waiting)."""
         with self._span("upload"):
-            fnoise = fnoise.to(self.device, non_blocking=True)
+            table = self._host_zeros((len(keys), 2), torch.int64)
+            table[:] = key_table(keys)
+            scale = self._host_zeros((1,))
+            scale[0] = self._scales(syn)[0]
+            return (table.to(self.device, non_blocking=True),
+                    scale.to(self.device, non_blocking=True))
+
+    def _latents(self, enc, keys, num_frames: int, syn: SynthesisConfig):
+        """z_p and y_mask of the rows of `enc` at num_frames (the stream's
+        latents), each row's frame noise from its key: a latents graph at
+        the frame bucket, the batch path's noise and arithmetic."""
+        top = self.frame_buckets[-1]
+        fb = batching.pick_bucket(num_frames, self.frame_buckets) if num_frames <= top else num_frames
         with self._span("decode"):
-            return M.synthesizer_latents(
-                self.params, enc, num_frames, cfg=self.model_cfg,
-                noise_scale=self._scales(syn)[0], frame_noise=fnoise,
-            )
+            m_p, logs_p, y_mask = M.expand_prior(enc, fb)
+            z_p = self._graph("latents", self._latents_step,
+                              (m_p, logs_p, y_mask, *self._noise_inputs(keys, syn)))
+        return z_p[:, :num_frames], y_mask[:, :num_frames]
 
     def _synthesize(
         self, ids_list, keys, syn: SynthesisConfig
@@ -635,11 +671,11 @@ class TorchVoice:
                 else:
                     genc = enc
                 gframes = [frames[j] for j in members]
-                z_p, y_mask = self._latents(genc, [rkeys[j] for j in members], fbucket, syn,
-                                            gframes)
+                noise_in = self._noise_inputs([rkeys[j] for j in members], syn)
                 with self._span("decode"):
+                    m_p, logs_p, y_mask = M.expand_prior(genc, fbucket)
                     sid = self._speaker(syn, n)
-                    z = self._flow_rows(z_p, y_mask, sid, gframes)
+                    z = self._flow_rows(m_p, logs_p, y_mask, *noise_in, sid, gframes)
                     g = M.speaker_embedding(self.params, self.model_cfg, sid)
                     # the eager generator runs at the longest row, not at
                     # the frame bucket: its kernels' work follows the width
@@ -787,7 +823,8 @@ class TorchVoice:
 
     def warmup(self, batch_sizes: Sequence[int] = (1,), *, full: bool = False) -> None:
         """Build the kernels (on CUDA), capture the encode graph of every
-        phoneme bucket and the streaming chunk's graph (runtime/graphs.py).
+        phoneme bucket, a stream's latents graph of every frame bucket and
+        the streaming chunk's graph (runtime/graphs.py).
         With `full`, also the flow graph of every frame bucket (at
         flow_graph_rows(bucket) rows, the only count it runs), and run
         one whole batch (encode, decode, copy to the host) per
@@ -808,20 +845,25 @@ class TorchVoice:
             for pb in self.phoneme_buckets:
                 for _ in range(2):
                     self._encode([[tok] * pb], [utterance_seed(0, [tok] * pb)], pb, syn)
+            c = self.model_cfg.inter_channels
+            noise_in = self._noise_inputs([0], syn)
+            for fb in self.frame_buckets:  # a stream's latents
+                z = torch.zeros((1, fb, c), dtype=self.dtype, device=self.device)
+                for _ in range(2):
+                    self._graph("latents", self._latents_step, (z, z, z[..., :1], *noise_in))
             dec = StreamingDecoder(self)
-            z = torch.zeros((1, dec.window, self.model_cfg.inter_channels), dtype=self.dtype,
-                            device=self.device)
+            z = torch.zeros((1, dec.window, c), dtype=self.dtype, device=self.device)
             for _ in range(2):
                 dec._vocode(z, dec.window, 0, 0, self._speaker(syn, 1))
         if not full:
             return
-        c = self.model_cfg.inter_channels
         with torch.inference_mode():
             for fb in self.frame_buckets:
                 b = flow_graph_rows(fb, self.dtype)
                 z = torch.zeros((b, fb, c), dtype=self.dtype, device=self.device)
+                noise_in = self._noise_inputs([0] * b, syn)
                 for _ in range(2):
-                    self._flow(z, z[..., :1], self._speaker(syn, b))
+                    self._flow(z, z, z[..., :1], *noise_in, self._speaker(syn, b))
         rows = 1
         while True:
             self.collect(self.submit([[1, 0] + [tok, 0] * 30 + [2]] * rows, syn=syn))

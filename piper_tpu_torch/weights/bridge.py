@@ -69,6 +69,14 @@ def params_from_jax(
     return out
 
 
+def params_d_from_jax(tree: Params, cfg: ModelConfig, device="cpu") -> Params:
+    """The discriminators' numpy tree (the JAX package's params_d:
+    disc_s, disc_p and, for VITS2, dur_disc) -> float32 tensors. Raises
+    when it does not match `cfg`."""
+    _check_tree_d(tree, cfg)
+    return _convert(tree, device, torch.float32)
+
+
 def _check_tree(tree: Params, cfg: ModelConfig) -> None:
     """Raise when the tree lacks what `cfg` runs: the generator's stages
     and shapes (HiFiGAN or MB-iSTFT), VITS2's attention in every coupling
@@ -103,6 +111,34 @@ def _check_tree(tree: Params, cfg: ModelConfig) -> None:
                 raise ValueError(f"flow_transformer: flow.layers.{i} lacks attn or attn_norm")
     if cfg.speaker_cond_encoder and cfg.gin_channels and "cond" not in tree["enc_p"]:
         raise ValueError("speaker_cond_encoder: enc_p lacks cond")
+    if "enc_q" in tree:  # a training tree: the posterior encoder's shapes
+        enc_q = tree["enc_q"]
+        checks = (
+            ("enc_q.pre.w", enc_q["pre"]["w"], (cfg.spec_channels, cfg.hidden_channels)),
+            ("enc_q.proj.w", enc_q["proj"]["w"], (cfg.hidden_channels, 2 * cfg.inter_channels)),
+        )
+        for name, w, want in checks:
+            if tuple(np.shape(w)) != want:
+                raise ValueError(f"{name} has shape {tuple(np.shape(w))}, expected {want}")
+        if bool(cfg.gin_channels) != ("cond_layer" in enc_q["enc"]):
+            raise ValueError("enc_q.enc.cond_layer must be there exactly when gin_channels is set")
+
+
+def _check_tree_d(tree: Params, cfg: ModelConfig) -> None:
+    """Raise when the discriminators' tree lacks what training runs: the
+    scale discriminator, five period discriminators, and VITS2's
+    duration discriminator over the text encoder's hidden width."""
+    for key in ("disc_s", "disc_p"):
+        if key not in tree:
+            raise KeyError(f"discriminator parameters lack {key!r}")
+    if len(tree["disc_p"]) != 5:
+        raise ValueError(f"{len(tree['disc_p'])} period discriminators, expected 5")
+    if cfg.use_dur_disc:
+        if "dur_disc" not in tree:
+            raise KeyError("use_dur_disc: discriminator parameters lack 'dur_disc'")
+        got = tuple(np.shape(tree["dur_disc"]["pre_x"]["w"]))[:1]
+        if got != (cfg.hidden_channels,):
+            raise ValueError(f"dur_disc.pre_x.w takes {got} channels, expected {cfg.hidden_channels}")
 
 
 def iter_leaves(tree: Any, prefix: str = "") -> Iterator[Tuple[str, Any]]:

@@ -152,12 +152,14 @@ def test_id_upload_dtype_follows_num_symbols(num_symbols, dtype, monkeypatch):
 
 def test_encode_step_takes_its_scales_as_a_tensor(params):
     """The encode graph's scales are an input tensor: the same bits as
-    the Python numbers of an eager encode."""
+    the Python numbers of an eager encode (which is given the noise the
+    graph draws from the row's key)."""
     voice = _voice(params)
     ids = torch.tensor([[1, 0, 40, 0, 41, 0, 2] + [0] * 25])
     lengths = torch.tensor([7], dtype=torch.int32)
-    noise = torch.randn((1, 32, 2), generator=torch.Generator().manual_seed(0))
-    *enc, frames = voice._encode_step(ids.to(torch.uint8), lengths, noise,
+    keys = RV.key_table([RV.utterance_seed(0, [1, 0, 40, 0, 41, 0, 2])])
+    noise = RV.duration_noise_rows(keys, 32)
+    *enc, frames = voice._encode_step(ids.to(torch.uint8), lengths, keys,
                                       torch.tensor([0.8, 1.3]), None)
     ref = M.synthesizer_encode(voice.params, ids, lengths, cfg=CFG, noise_w_scale=0.8,
                                length_scale=1.3, dur_noise=noise, dtype=voice.dtype)
@@ -219,9 +221,9 @@ def test_flow_runs_each_row_at_its_own_bucket(params, precision, monkeypatch):
     shapes = []
     flow = voice._flow
 
-    def spy(z_p, y_mask, sid):
-        shapes.append(tuple(z_p.shape[:2]))
-        return flow(z_p, y_mask, sid)
+    def spy(m_p, *inputs):  # the flow graph's inputs: the latents' and sid
+        shapes.append(tuple(m_p.shape[:2]))
+        return flow(m_p, *inputs)
 
     monkeypatch.setattr(voice, "_flow", spy)
     rows = _rows()

@@ -34,6 +34,7 @@ of them to --out. Needs a card.
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import statistics
 import subprocess
@@ -105,9 +106,15 @@ def graph_costs(voice, rows_list, emit) -> None:
             z = torch.randn((r, fb, cfg.inter_channels), generator=g).to("cuda", voice.dtype)
             mask = torch.ones((r, fb, 1), dtype=voice.dtype, device="cuda")
             sid = voice._speaker(syn, r)
+            if "keys" in inspect.signature(voice._flow).parameters:
+                # a flow graph that draws its rows' frame noise and latents
+                noise_in = voice._noise_inputs(list(range(r)), syn)
+                inputs = (z, z, mask, *noise_in, sid)
+            else:  # an older checkout's flow graph: the latents as input
+                inputs = (z, mask, sid)
             with torch.inference_mode():
                 def fn():
-                    return voice._flow(z, mask, sid)
+                    return voice._flow(*inputs)
                 fn()
                 fn()  # a graph's key is captured at its second call
                 emit({"part": "graph", "bucket": fb, "rows": r,

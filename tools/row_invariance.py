@@ -162,8 +162,9 @@ def stage_diffs(voice: TorchVoice, speaker=None) -> dict:
     cfg = voice.model_cfg
     rows = [_ids(n, cfg.num_symbols) for n in LENGTHS]
     seeds = list(range(len(rows)))
-    rec, decode_rows = {}, []
-    encode, latents, generate = voice._encode, voice._latents, M.synthesizer_generate
+    rec, decode_rows, decode_keys = {}, [], []
+    encode, noise_inputs, flow_rows = voice._encode, voice._noise_inputs, voice._flow_rows
+    generate = M.synthesizer_generate
 
     def put(stage, key, t):
         rec[(stage, key)] = t.float().cpu()
@@ -176,12 +177,18 @@ def stage_diffs(voice: TorchVoice, speaker=None) -> dict:
                 put(stage, key, t[j, :n])
         return enc, frames
 
-    def rec_latents(enc, keys, num_frames, syn, frames=None):
-        z_p, y_mask = latents(enc, keys, num_frames, syn, frames)
-        decode_rows[:] = list(zip(keys, frames or [num_frames] * len(keys)))
+    def rec_noise_inputs(keys, syn):  # a decode's row keys, before its flows
+        decode_keys[:] = list(keys)
+        return noise_inputs(keys, syn)
+
+    def rec_flow_rows(m_p, logs_p, y_mask, keys, scale, sid, frames):
+        # the latents the flow graphs draw, recomputed eagerly (elementwise:
+        # the same bits at the decode's bucket as at each row's own)
+        (z_p,) = voice._latents_step(m_p, logs_p, y_mask, keys, scale)
+        decode_rows[:] = list(zip(decode_keys, frames))
         for j, (key, f) in enumerate(decode_rows):
             put("z_p", key, z_p[j, :f])
-        return z_p, y_mask
+        return flow_rows(m_p, logs_p, y_mask, keys, scale, sid, frames)
 
     def rec_generate(params, z, *a, **k):
         audio = generate(params, z, *a, **k)
@@ -196,7 +203,7 @@ def stage_diffs(voice: TorchVoice, speaker=None) -> dict:
         t0 = time.perf_counter()
         voice.collect(voice.submit(rows, syn=syn, row_seeds=seeds))
         walls.append((time.perf_counter() - t0) * 1e3)
-    voice._encode, voice._latents = rec_encode, rec_latents
+    voice._encode, voice._noise_inputs, voice._flow_rows = rec_encode, rec_noise_inputs, rec_flow_rows
     M.synthesizer_generate = rec_generate
     try:
         voice.collect(voice.submit(rows, syn=syn, row_seeds=seeds))
@@ -204,7 +211,7 @@ def stage_diffs(voice: TorchVoice, speaker=None) -> dict:
         for row, seed in zip(rows, seeds):
             voice.synthesize_ids_batch([row], syn=SynthesisConfig(seed=seed, speaker_id=speaker))
     finally:
-        del voice._encode, voice._latents
+        del voice._encode, voice._noise_inputs, voice._flow_rows
         M.synthesizer_generate = generate
     out = {}
     for (stage, key), t in together.items():
