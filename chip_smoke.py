@@ -40,8 +40,9 @@ Phases (any failure makes the exit code non-zero):
      pool); the seams of streaming in parity precision against one
      whole decode; both bf16 kernels at the streaming chunk's shape;
   5. published voices: phase 3's voice written as a piper_train .ckpt
-     (the port's state_dict_from_params) and as a registry voice (.onnx
-     initializers, sidecar, voices.json), each format's load time, and
+     (the port's state_dict_from_params) and as a registry voice (the
+     whole VITS graph from the port's exporter, onnx_io.export_onnx_voice;
+     sidecar; voices.json), each format's load time, and
      python -m piper_tpu_torch -m voice.ckpt and -m <registry name> with
      phase 3's lines and seed: the .npz run's WAVs byte for byte, with
      urlopen made to raise; the trained two-speaker x-low voice behind
@@ -84,13 +85,32 @@ Phases (any failure makes the exit code non-zero):
      and the exported voice through python -m piper_tpu_torch (WAV
      checks). No kernel of the port runs in the
      training step (nor a Pallas kernel in the JAX one); the validation
-     pass's infer runs both.
+     pass's infer runs both;
+  8. the voice builder's path: a synthetic LJSpeech corpus (8 voiced
+     bursts between stretches of silence, 22,050 Hz) through python -m
+     piper_tpu_torch.train.preprocess at 16 kHz with --max-workers 4
+     (every file trimmed by the Silero VAD, not to nothing; the same
+     files as a --max-workers 1 run) and the host's seconds per
+     audio-minute for resampling, the VAD and the spectrograms; python
+     -m piper_tpu_torch.train for 2 steps at the x-low preset on that
+     directory (voice_2.npz); phase 3's medium voice through python -m
+     piper_tpu_torch.export --format onnx (seconds, MiB) and that .onnx
+     through the CLI with --seed 1 (the .npz's WAVs byte for byte in
+     both precisions); python -m piper_tpu_torch.infer --batch --seed 1
+     on the .onnx with and without --denoiser-strength 0.005 (the card
+     against the CPU in parity within 1e-3, 1 + 2 kernel launches per
+     decode, the RTF with and without the denoiser); python -m
+     piper_tpu_torch.tools.voice_conversion with the trained two-speaker
+     x-low voice, a WAV of speaker 0 from the CLI -> speaker 1, --seed 3
+     (card against CPU within 1e-3, the same bytes twice, 1 + 2 launches
+     per conversion, wall and device ms per audio-second).
 
 Then the card's nvidia-smi line, one JSON line of per-kernel numbers
-(launches summed over the CLI main paths of phases 3 and 6), and the
-device line. Every phase prints its start, its end and its wall
-seconds; a phase that raises is a failed check, and the failed checks
-are listed on stdout and on stderr before a non-zero exit.
+(launches summed over the CLI main paths of phases 3 and 6 and the
+entry points of phase 8), and the device line. Every phase prints its
+start, its end and its wall seconds; a phase that raises is a failed
+check, and the failed checks are listed on stdout and on stderr before
+a non-zero exit.
 
 Needs one CUDA card; prints no result and exits non-zero without one.
 
@@ -1064,45 +1084,17 @@ def read_counts():
     return V.mrf_fused.launches, V.fused_upsample_mrf.launches
 
 
-def _pb_varint(n: int) -> bytes:
-    out = bytearray()
-    while True:
-        out.append((n & 0x7F) | (0x80 if n > 0x7F else 0))
-        n >>= 7
-        if not n:
-            return bytes(out)
-
-
-def _pb_field(num: int, wire: int, payload) -> bytes:
-    tag = _pb_varint(num << 3 | wire)
-    return tag + (_pb_varint(payload) if wire == 0 else _pb_varint(len(payload)) + payload)
-
-
-def write_onnx_initializers(path: Path, state_dict) -> None:
-    """An ONNX ModelProto whose graph holds `state_dict` as float32
-    initializers (TensorProto dims, data_type 1, name, raw_data): the
-    module-named initializer table of a reference export, which is all
-    weights/onnx_loader.py reads; no graph nodes."""
-    import numpy as np
-
-    tensors = []
-    for name, arr in state_dict.items():
-        arr = np.ascontiguousarray(arr, np.float32)
-        t = b"".join(_pb_field(1, 0, d) for d in arr.shape) + _pb_field(2, 0, 1)
-        tensors.append(t + _pb_field(8, 2, name.encode()) + _pb_field(9, 2, arr.tobytes()))
-    graph = b"".join(_pb_field(5, 2, t) for t in tensors)
-    path.write_bytes(_pb_field(1, 0, 8) + _pb_field(7, 2, graph))
-
-
 def write_published(tmp: Path, cfg, params_np):
     """Phase 3's medium voice as voice.ckpt (piper_train's Lightning
     layout, through the port's state_dict_from_params) and as a registry
-    voice: <name>.onnx with its sidecar and a voices.json that lists both
-    files by size and md5."""
+    voice: <name>.onnx written by the port's exporter (the whole VITS
+    graph, onnx_io.export_onnx_voice) with its sidecar and a voices.json
+    that lists both files by size and md5."""
     import dataclasses
 
     import torch
 
+    from piper_tpu_torch.onnx_io import export_onnx_voice
     from piper_tpu_torch.runtime.download import get_file_hash
     from piper_tpu_torch.weights.torch_export import state_dict_from_params
 
@@ -1114,7 +1106,7 @@ def write_published(tmp: Path, cfg, params_np):
     (tmp / "voice.ckpt.json").write_text(sidecar)
     data = tmp / "data"
     data.mkdir()
-    write_onnx_initializers(data / f"{VOICE_NAME}.onnx", sd)
+    export_onnx_voice(params_np, cfg, str(data / f"{VOICE_NAME}.onnx"))
     (data / f"{VOICE_NAME}.onnx.json").write_text(sidecar)
     files = {f"xx/xx_XX/smoke/medium/{f.name}": {"size_bytes": f.stat().st_size, "md5_digest": get_file_hash(f)}
              for f in sorted(data.iterdir())}
@@ -2035,6 +2027,353 @@ def phase_training(card: str) -> None:
         train_cli(ds, tmp, card)
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: the voice builder's path
+# ---------------------------------------------------------------------------
+
+BUILDER_UTTERANCES = 8  # voiced bursts of 0.6-1.2 s between 0.3-0.6 s of silence
+BUILDER_RATE = 16000  # x-low's rate: preprocessing resamples the 22,050 Hz WAVs
+VC_TEXT = "Speaker zero says this line, and speaker one will say it back."
+
+
+def run_module(module: str, argv, timeout: int = 600) -> float:
+    """python -m <module> argv in a process of its own (its stdout and
+    stderr pass through); returns its wall seconds."""
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, "-m", module, *map(str, argv)], cwd=ROOT, check=True,
+                   timeout=timeout)
+    return time.perf_counter() - t0
+
+
+def dataset_files(out: Path):
+    """(config.json without piper_version, dataset.jsonl records with
+    paths relative to `out`, {relative path: bytes} of every .npy)."""
+    config = json.loads((out / "config.json").read_text())
+    config.pop("piper_version")
+    recs = [json.loads(line) for line in (out / "dataset.jsonl").read_text().splitlines() if line]
+    for rec in recs:
+        for key in ("audio_norm_path", "audio_spec_path"):
+            rec[key] = str(Path(rec[key]).relative_to(out))
+    npys = {str(p.relative_to(out)): p.read_bytes() for p in sorted(out.rglob("*.npy"))}
+    return config, recs, npys
+
+
+def preprocess_costs(corpus: Path, audio_min: float, card: str) -> None:
+    """Host seconds per audio-minute of each step preprocessing takes per
+    file (train/norm_audio.cache_norm_audio): the WAV read, the polyphase
+    resample to 16 kHz, the Silero VAD's chunk scores (one detector, as a
+    worker keeps one) and the spectrogram. cache_norm_audio reads and
+    resamples twice (for the VAD, and at the target rate)."""
+    from piper_tpu_torch.train import norm_audio as N
+
+    det = N.SileroVAD()
+    spent = dict.fromkeys(("read", "resample", "vad", "spectrogram"), 0.0)
+    for wav_path in sorted((corpus / "wavs").glob("*.wav")):
+        with wave.open(str(wav_path), "rb") as w:
+            sr = w.getframerate()
+        t0 = time.perf_counter()
+        audio = N.load_audio(wav_path, sr)
+        t1 = time.perf_counter()
+        audio16 = N.resample(audio, sr, N.VAD_SAMPLE_RATE)
+        t2 = time.perf_counter()
+        offset, duration = N.trim_silence_vad(audio16, det)
+        t3 = time.perf_counter()
+        start = int(offset * BUILDER_RATE)
+        end = start + int(duration * BUILDER_RATE) if duration is not None else len(audio16)
+        N.spectrogram_np(audio16[start:end], n_fft=1024, hop_length=256, win_length=1024)
+        t4 = time.perf_counter()
+        for k, dt in zip(spent, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+            spent[k] += dt
+    per_min = {k: v / audio_min for k, v in spent.items()}
+    print(f"phase 8: preprocessing on the host, s per audio-minute ({audio_min * 60:.2f} audio-s): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in per_min.items())
+          + f"; cache_norm_audio's total {2 * per_min['read'] + 2 * per_min['resample'] + per_min['vad'] + per_min['spectrogram']:.4f}"
+          f"  [{card}; host CPU]", flush=True)
+
+
+def builder_preprocess(tmp: Path, card: str) -> Path:
+    """The corpus through python -m piper_tpu_torch.train.preprocess with
+    4 workers and with 1; returns the 4 workers' directory."""
+    import numpy as np
+
+    from piper_tpu_torch.train.dataset import write_synthetic_corpus
+    from piper_tpu_torch.train.norm_audio import load_audio
+
+    corpus = write_synthetic_corpus(tmp / "corpus", n_utterances=BUILDER_UTTERANCES,
+                                    sample_rate=22050, seconds=(0.6, 1.2), seed=0)
+    audio_s = 0.0
+    for p in (corpus / "wavs").glob("*.wav"):
+        with wave.open(str(p), "rb") as w:
+            audio_s += w.getnframes() / w.getframerate()
+    outs = {}
+    for workers in (4, 1):
+        out = tmp / f"dataset_{workers}"
+        wall = run_module("piper_tpu_torch.train.preprocess", [
+            "--input-dir", corpus, "--output-dir", out, "--language", "en-us",
+            "--sample-rate", BUILDER_RATE, "--dataset-format", "ljspeech", "--phoneme-type", "text",
+            "--max-workers", workers, "--single-speaker"])
+        outs[workers] = dataset_files(out)
+        print(f"phase 8: python -m piper_tpu_torch.train.preprocess --max-workers {workers}: "
+              f"{wall:.2f} s for {audio_s:.2f} audio-s ({wall / (audio_s / 60):.2f} s per audio-minute, "
+              f"process start and torch import included)  [{card}; host CPU]", flush=True)
+    config, recs, npys = outs[4]
+    kept = []
+    for rec in recs:
+        full = len(load_audio(rec["audio_path"], BUILDER_RATE))
+        kept.append((len(np.load(tmp / "dataset_4" / rec["audio_norm_path"])), full))
+    check(len(recs) == BUILDER_UTTERANCES and all(0 < k < f for k, f in kept),
+          f"preprocess: {len(recs)} records, each trimmed by the Silero VAD and not to nothing "
+          f"(kept/full samples {kept})")
+    check(outs[4] == outs[1] and len(npys) == 2 * BUILDER_UTTERANCES,
+          f"preprocess: --max-workers 4 and 1 wrote the same config.json, dataset.jsonl and "
+          f"{len(npys)} .npy files")
+    preprocess_costs(corpus, audio_s / 60, card)
+    return tmp / "dataset_4"
+
+
+def builder_train(data: Path, tmp: Path, card: str) -> None:
+    """python -m piper_tpu_torch.train, 2 steps at the x-low preset on
+    the preprocessed directory, on the card (in this process)."""
+    import numpy as np
+
+    from piper_tpu_torch.train.__main__ import main as train_main
+
+    ckpt = tmp / "builder_ckpt"
+    t0 = time.perf_counter()
+    train_main(["--dataset-dir", str(data), "--checkpoint-dir", str(ckpt), "--quality", "x-low",
+                "--batch-size", "4", "--single-bucket", "--max-steps", "2", "--log-steps", "1",
+                "--checkpoint-steps", "2", "--validate-steps", "0", "--validation-split", "0",
+                "--export-every", "2"])
+    wall = time.perf_counter() - t0
+    rows = [json.loads(line) for line in (ckpt / "metrics.jsonl").read_text().splitlines()]
+    steps = [r["step"] for r in rows if "loss_gen_all" in r]
+    finite = all(np.isfinite(v) for r in rows for k, v in r.items() if k.startswith("loss"))
+    check(steps == [1, 2] and finite and (ckpt / "voice_2.npz").exists(),
+          f"python -m piper_tpu_torch.train on the preprocessed directory: steps {steps}, every loss "
+          f"finite, voice_2.npz written ({wall:.1f} s)  [{card}]")
+
+
+def counted_run(fn):
+    """fn() with the launch counts set to 0 just before and read just
+    after, and every TorchVoice.submit's decodes recorded:
+    (result, mrf_fused launches, fused_upsample_mrf launches, decodes)."""
+    with counting_decodes() as decodes:
+        zero_counts()
+        out = fn()
+        n_mrf, n_fused = read_counts()
+    return out, n_mrf, n_fused, sum(decodes)
+
+
+def builder_export(tmp: Path, card: str, launches: dict) -> Path:
+    """Phase 3's medium voice through python -m piper_tpu_torch.export
+    --format onnx, then the CLI on the .onnx and on the .npz with phase
+    3's lines and seed, in both precisions: the same WAVs byte for byte."""
+    from piper_tpu_torch.export import main as export_main
+
+    onnx = tmp / "exported.onnx"
+    t0 = time.perf_counter()
+    export_main(["--input", str(tmp / "voice.npz"), "--format", "onnx", "--output", str(onnx)])
+    export_s = time.perf_counter() - t0
+    print(f"phase 8: python -m piper_tpu_torch.export --format onnx, medium voice: {export_s:.3f} s, "
+          f"{onnx.stat().st_size / 2**20:.2f} MiB (.npz {(tmp / 'voice.npz').stat().st_size / 2**20:.2f} "
+          f"MiB)  [{card}; host CPU]", flush=True)
+    for precision in ("fast", "parity"):
+        runs = {}
+        for fmt, model in (("npz", tmp / "voice.npz"), ("onnx", onnx)):
+            out = tmp / f"builder_{fmt}_{precision}"
+            argv = ["-m", str(model), "-d", str(out), "--batch", "--seed", "1", "-q",
+                    "--precision", precision]
+            _, n_mrf, n_fused, decodes = counted_run(lambda: run_cli(argv, TEXTS))
+            runs[fmt] = sorted(out.glob("*.wav"))
+            if fmt == "onnx":
+                launches["mrf_fused"] += n_mrf
+                launches["fused_upsample_mrf"] += n_fused
+                check(decodes >= 1 and n_mrf == decodes and n_fused == 2 * decodes,
+                      f"CLI -m exported.onnx ({precision}): mrf_fused {n_mrf}, fused_upsample_mrf "
+                      f"{n_fused} launches for {decodes} decodes")
+        same = sum(a.name == b.name and a.read_bytes() == b.read_bytes()
+                   for a, b in zip(runs["onnx"], runs["npz"]))
+        check(len(runs["onnx"]) == len(TEXTS) and same == len(TEXTS),
+              f"CLI -m exported.onnx ({precision}): {same} of {len(TEXTS)} WAVs equal the .npz's "
+              f"byte for byte  [{card}]")
+    return onnx
+
+
+def builder_jsonl():
+    """3 utterances of 40-100 ids (BOS, PAD-interspersed, EOS)."""
+    import numpy as np
+
+    rng = np.random.default_rng(8)
+    return "".join(json.dumps({"phoneme_ids": [1, 0] + [int(x) for s in rng.integers(3, 256, n)
+                                                        for x in (s, 0)] + [2]}) + "\n"
+                   for n in (20, 35, 50))
+
+
+@contextlib.contextmanager
+def recorded_audio(module):
+    """The float audio of each WAV written through `module`'s
+    audio_float_to_int16, recorded while the block runs."""
+    import numpy as np
+
+    floats = []
+    inner = module.audio_float_to_int16
+
+    def spy(audio, *a, **k):
+        floats.append(np.asarray(audio, np.float32).copy())
+        return inner(audio, *a, **k)
+
+    module.audio_float_to_int16 = spy
+    try:
+        yield floats
+    finally:
+        module.audio_float_to_int16 = inner
+
+
+def run_infer(argv):
+    """python -m piper_tpu_torch.infer in this process with the JSONL on
+    stdin: (its seconds, the float audio of each WAV it wrote)."""
+    import piper_tpu_torch.infer as I
+
+    saved = sys.stdin
+    sys.stdin = io.StringIO(builder_jsonl())
+    try:
+        with recorded_audio(I) as floats:
+            stats = I.main(argv)
+    finally:
+        sys.stdin = saved
+    return stats, floats
+
+
+def builder_harness(onnx: Path, tmp: Path, card: str, launches: dict) -> None:
+    """python -m piper_tpu_torch.infer --batch --seed 1 on the exported
+    .onnx, with and without --denoiser-strength 0.005: the RTF of each
+    (fast, on the card), the card against the CPU in parity (1e-3), and
+    1 + 2 launches per decode (the denoiser's blank synthesis is one)."""
+    import numpy as np
+
+    audio = {}
+    for precision, device, strength in (("fast", "cuda", "0"), ("fast", "cuda", "0.005"),
+                                        ("parity", "cuda", "0"), ("parity", "cuda", "0.005"),
+                                        ("parity", "cpu", "0"), ("parity", "cpu", "0.005")):
+        argv = ["-m", str(onnx), "-o", str(tmp / f"infer_{precision}_{device}_{strength}"),
+                "--batch", "--seed", "1", "--precision", precision, "--device", device,
+                "--denoiser-strength", strength]
+        (stats, floats), n_mrf, n_fused, decodes = counted_run(lambda: run_infer(argv))
+        audio[precision, device, strength] = floats
+        rtf = stats["infer_s"] / stats["audio_s"]
+        rtf_d = (stats["infer_s"] + stats["denoise_s"]) / stats["audio_s"]
+        print(f"phase 8: python -m piper_tpu_torch.infer --batch ({precision}, {device}, denoiser "
+              f"{strength}): {len(floats)} WAVs, {stats['audio_s']:.2f} audio-s, infer "
+              f"{stats['infer_s']:.4f} s (RTF {rtf:.5f}), denoiser {stats['denoise_s']:.4f} s "
+              f"(RTF with it {rtf_d:.5f}; first call of this process's voice, cold)"
+              f"  [{card if device == 'cuda' else 'host CPU'}]", flush=True)
+        if device == "cuda":
+            launches["mrf_fused"] += n_mrf
+            launches["fused_upsample_mrf"] += n_fused
+            check(decodes >= 1 and n_mrf == decodes and n_fused == 2 * decodes,
+                  f"infer ({precision}, denoiser {strength}): mrf_fused {n_mrf}, fused_upsample_mrf "
+                  f"{n_fused} launches for {decodes} decodes")
+    for strength in ("0", "0.005"):
+        card_a, cpu_a = audio["parity", "cuda", strength], audio["parity", "cpu", strength]
+        same_len = len(card_a) == len(cpu_a) == 3 and all(a.shape == b.shape for a, b in zip(card_a, cpu_a))
+        err = max(float(np.abs(a - b).max()) for a, b in zip(card_a, cpu_a)) if same_len else math.inf
+        check(same_len and err < 1e-3,
+              f"infer, denoiser {strength}: card vs CPU in parity, max_abs_err {err:.3e} (atol 1e-3)")
+    moved = max(float(np.abs(a - b).max()) for a, b in zip(audio["parity", "cuda", "0"],
+                                                           audio["parity", "cuda", "0.005"]))
+    check(moved > 0, f"the denoiser changed the audio (max |change| {moved:.3e})")
+
+
+def run_vc(argv):
+    """python -m piper_tpu_torch.tools.voice_conversion in this process:
+    (wall s, the float audio of each WAV it wrote)."""
+    import piper_tpu_torch.runtime.wav as W
+    from piper_tpu_torch.tools.voice_conversion import main as vc_main
+
+    t0 = time.perf_counter()
+    with recorded_audio(W) as floats:
+        vc_main(argv)
+    return time.perf_counter() - t0, floats
+
+
+def builder_voice_conversion(tmp: Path, card: str, launches: dict) -> None:
+    """The trained two-speaker x-low voice: speaker 0's WAV from the CLI
+    converted to speaker 1 with --seed 3 on the card twice (same bytes)
+    and on the CPU (1e-3); 1 + 2 launches per conversion; the warm wall
+    and device ms per audio-second of voice_convert_audio."""
+    import numpy as np
+    import torch
+
+    from piper_tpu_torch.models.vits import generator as G
+    from piper_tpu_torch.ops import prng
+    from piper_tpu_torch.runtime.voice import random_voice_config
+    from piper_tpu_torch.runtime.voice_conversion import voice_convert_audio
+    from piper_tpu_torch.runtime.wav import read_wav as read_pcm
+    from piper_tpu_torch.weights.bridge import params_from_jax
+    from piper_tpu_torch.weights.native import load_native
+
+    d = tmp / "vc"
+    d.mkdir()
+    model = d / "voice.npz"
+    shutil.copy(MS2_VOICE, model)
+    tree, cfg = load_native(str(model))
+    (d / "voice.npz.json").write_text(json.dumps(random_voice_config(cfg).to_dict()))
+    src = d / "speaker0.wav"
+    run_cli(["-m", str(model), "-f", str(src), "--seed", "1", "-s", "0", "-q"], [VC_TEXT])
+    sr, pcm = read_pcm(src)
+    audio_s = len(pcm) / sr
+    outs = {}
+    for run, device in (("card", "cuda"), ("card again", "cuda"), ("cpu", "cpu")):
+        out = d / run.replace(" ", "_")
+        argv = ["--model", str(model), "--source-speaker", "0", "--target-speaker", "1", "--seed", "3",
+                "--device", device, "--output-dir", str(out), str(src)]
+        (wall, floats), n_mrf, n_fused, _ = counted_run(lambda: run_vc(argv))
+        outs[run] = (floats, (out / src.name).read_bytes())
+        print(f"phase 8: python -m piper_tpu_torch.tools.voice_conversion ({device}, {audio_s:.2f} audio-s "
+              f"at {sr} Hz, 0 -> 1): {wall:.3f} s, cold (load and first call included)"
+              f"  [{card if device == 'cuda' else 'host CPU'}]", flush=True)
+        if device == "cuda":
+            launches["mrf_fused"] += n_mrf
+            launches["fused_upsample_mrf"] += n_fused
+            check(n_mrf == 1 and n_fused == 2,
+                  f"voice conversion ({run}): mrf_fused {n_mrf}, fused_upsample_mrf {n_fused} launches "
+                  f"for one conversion")
+    card_a, cpu_a = outs["card"][0], outs["cpu"][0]
+    ok = len(card_a) == len(cpu_a) == 1 and card_a[0].shape == cpu_a[0].shape and card_a[0].size > 0
+    err = float(np.abs(card_a[0] - cpu_a[0]).max()) if ok else math.inf
+    check(ok and err < 1e-3,
+          f"voice conversion: card vs CPU, {card_a[0].size if ok else 0} samples, max_abs_err {err:.3e} "
+          f"(atol 1e-3)")
+    check(outs["card"][1] == outs["card again"][1], "voice conversion: --seed 3 twice, the same bytes")
+    # warm: wall and device time of the conversion alone
+    params = params_from_jax(tree, cfg, "cuda", torch.float32)
+    tm = G.prepare_tm(params["dec"], cfg, torch.float32)
+    x = pcm.astype(np.float32) / 32768.0
+    fn = lambda: voice_convert_audio(params, x, 0, 1, cfg=cfg, tm=tm, key=prng.prng_key(3, "cuda"))
+    fn()
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        fn()  # ends in the copy of the samples to the host
+        walls.append(time.perf_counter() - t0)
+    dev_ms = busy_ms(fn)
+    print(f"phase 8: voice conversion warm, x-low trained, {audio_s:.2f} audio-s: wall {min(walls) * 1e3:.2f} "
+          f"ms ({min(walls) * 1e3 / audio_s:.2f} ms per audio-s), device {dev_ms:.2f} ms "
+          f"({dev_ms / audio_s:.2f} ms per audio-s)  [{card}]", flush=True)
+
+
+def phase_voice_builder(tmp: Path, card: str) -> dict:
+    """Phase 8 (see the module docstring); returns the kernels' launches
+    on its entry points' runs on the card."""
+    launches = {"mrf_fused": 0, "fused_upsample_mrf": 0}
+    data = builder_preprocess(tmp, card)
+    builder_train(data, tmp, card)
+    onnx = builder_export(tmp, card, launches)
+    builder_harness(onnx, tmp, card, launches)
+    builder_voice_conversion(tmp, card, launches)
+    return launches
+
+
 SPANNED = ("submit", "_encode", "_read_frames", "_latents", "_flow")
 
 
@@ -2241,15 +2580,22 @@ def main(argv) -> int:
             phase_published_files(tmp, cfg, params_np, smi)
             phase_two_speakers(smi)
             phase_long_row(cfg, params_np, smi, peaks)
-    # 6. VITS2 and MB-iSTFT voices; the kernels' launches are summed
-    # over the main paths of phase 3 and of this phase's CLI runs
-    with phase("6, VITS2 and MB-iSTFT voices"), tempfile.TemporaryDirectory() as tmp:
-        tmp = Path(tmp)
-        for variant, (path, vcfg, vparams) in write_variant_voices(tmp / "voices").items():
-            for k, n in phase_variant(tmp, variant, path, vcfg, vparams, smi, hifigan_ms).items():
+        # 6. VITS2 and MB-iSTFT voices; the kernels' launches are summed
+        # over the main paths of phase 3 and of this phase's CLI runs
+        with phase("6, VITS2 and MB-iSTFT voices"):
+            variants = tmp / "variants"
+            variants.mkdir()
+            for variant, (path, vcfg, vparams) in write_variant_voices(variants / "voices").items():
+                for k, n in phase_variant(variants, variant, path, vcfg, vparams, smi,
+                                          hifigan_ms).items():
+                    launches[k] += n
+        with phase("7, training on the card"):
+            phase_training(smi)
+        # 8. the voice builder's path, on phase 3's medium voice and WAVs;
+        # its entry points' launches join the sums
+        with phase("8, the voice builder's path"):
+            for k, n in phase_voice_builder(tmp, smi).items():
                 launches[k] += n
-    with phase("7, training on the card"):
-        phase_training(smi)
 
     if FAILURES:
         for stream in (sys.stdout, sys.stderr):

@@ -20,6 +20,7 @@ from __future__ import annotations
 import json
 import logging
 import random
+import wave
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Dict, Iterator, List, Optional, Sequence, Union
@@ -245,4 +246,76 @@ def write_synthetic_dataset(
             if num_speakers > 1:
                 rec["speaker_id"] = i % num_speakers
             f.write(json.dumps(rec) + "\n")
+    return out
+
+
+CORPUS_TEXTS = (
+    "hello world this is a test",
+    "the quick brown fox",
+    "jumps over the lazy dog",
+    "text to speech on a graphics card",
+    "a longer sentence with several words in it for padding",
+    "short one",
+    "voices are built from recordings like these",
+    "silence before and after each line is trimmed",
+)
+
+
+def voiced_burst(seconds: float, sample_rate: int, f0: float) -> np.ndarray:
+    """A vowel-like signal the Silero VAD scores as speech: harmonics of a
+    slowly wobbling f0 under three formant peaks (700, 1200, 2600 Hz),
+    amplitude-modulated at a syllable rate of 4 Hz, peak 0.3. Pure tones
+    score as silence."""
+    t = np.arange(int(seconds * sample_rate)) / sample_rate
+    phase = 2 * np.pi * np.cumsum(f0 * (1 + 0.1 * np.sin(2 * np.pi * 0.7 * t))) / sample_rate
+    sig = np.zeros_like(t)
+    for h in range(1, 30):
+        amp = sum(np.exp(-(((h * f0) - f) / bw) ** 2)
+                  for f, bw in ((700, 130), (1200, 150), (2600, 250))) + 0.05 / h
+        sig += amp * np.sin(h * phase)
+    sig *= 0.5 * (1 - np.cos(2 * np.pi * 4 * t))
+    return (0.3 * sig / np.abs(sig).max()).astype(np.float32)
+
+
+def write_synthetic_corpus(
+    out_dir: Union[str, Path],
+    *,
+    n_utterances: int,
+    sample_rate: int,
+    speakers: int = 0,
+    tones: int = 0,
+    seconds: Sequence[float] = (0.6, 1.4),
+    seed: int = 0,
+) -> Path:
+    """Raw input for python -m piper_tpu_torch.train.preprocess in the
+    LJSpeech layout: wavs/utt<i>.wav (16-bit mono at `sample_rate`) and
+    metadata.csv with `id|text` rows, or `id|speaker|text` with
+    `speakers` > 0 (speaker s<i % speakers>). Each utterance is a voiced
+    burst (voiced_burst) of `seconds` (low, high) between stretches of
+    silence (0.3-0.6 s), so the VAD has something to trim; the first
+    `tones` are pure tones instead (the VAD leaves them untrimmed). For
+    smoke runs and tests."""
+    out = Path(out_dir)
+    wav_dir = out / "wavs"
+    wav_dir.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    rows = []
+    for i in range(n_utterances):
+        dur = float(rng.uniform(*seconds))
+        if i < tones:
+            t = np.arange(int(dur * sample_rate)) / sample_rate
+            sig = (0.4 * np.sin(2 * np.pi * (120 + 20 * i) * t)).astype(np.float32)
+        else:
+            sig = voiced_burst(dur, sample_rate, float(rng.uniform(90, 220)))
+        lead, tail = (np.zeros(int(rng.uniform(0.3, 0.6) * sample_rate), np.float32)
+                      for _ in range(2))
+        pcm = (np.concatenate([lead, sig, tail]) * 32767).astype(np.int16)
+        with wave.open(str(wav_dir / f"utt{i}.wav"), "wb") as w:
+            w.setnchannels(1)
+            w.setsampwidth(2)
+            w.setframerate(sample_rate)
+            w.writeframes(pcm.tobytes())
+        text = CORPUS_TEXTS[i % len(CORPUS_TEXTS)]
+        rows.append(f"utt{i}|s{i % speakers}|{text}" if speakers else f"utt{i}|{text}")
+    (out / "metadata.csv").write_text("\n".join(rows) + "\n", encoding="utf-8")
     return out
