@@ -23,15 +23,16 @@ Phases (any failure makes the exit code non-zero):
      warm-up captures every CUDA graph its timed runs replay);
   4. the serving path: the HTTP server in this process with the
      coalescing batcher on, after a full warm-up (the CUDA graphs of
-     every encode, flow and streamed-chunk shape: their capture time and
-     memory, and each graph kind's replay against its eager run, bit for
-     bit); /health and /metrics; two bursts of 16 concurrent GETs of /
+     every encode shape, the frame windows and the streamed chunk: their
+     capture time and memory, and each graph kind's replay against its
+     eager run, bit for bit); /health and /metrics; two bursts of 16 concurrent GETs of /
      (each equal to the same request served alone, fewer batches than
      requests, one mrf_fused and two fused_upsample_mrf launches per
      decode of the batch's plan); a measurement window of 320 GETs from
      16 closed-loop clients under decode_grouping uniform and bucketed
-     (p50/p99 latency, requests/s, every response checked, submit's host
-     time by span, the device's idle share from a profiled rerun); POST
+     (p50/p99 latency, requests/s, every response checked, the batches
+     on the speculative path, submit's host time by span, the device's
+     idle share from a profiled rerun); POST
      /batch; a chunked /stream (framing, sample count, one replay of the
      chunk graph with one mrf_fused and two fused_upsample_mrf launches
      per chunk) cold and 24 times warm (time to first chunk p50/p99);
@@ -103,11 +104,26 @@ Phases (any failure makes the exit code non-zero):
      piper_tpu_torch.tools.voice_conversion with the trained two-speaker
      x-low voice, a WAV of speaker 0 from the CLI -> speaker 1, --seed 3
      (card against CPU within 1e-3, the same bytes twice, 1 + 2 launches
-     per conversion, wall and device ms per audio-second).
+     per conversion, wall and device ms per audio-second);
+  9. speculative serving, fast precision: the medium voice, the VITS2
+     voice of phase 6 and the trained two-speaker x-low voice, each an
+     exact batch of 8 rows (3 phoneme buckets) and then the same rows,
+     which take the speculative path (the voice's path counter; no
+     frames_wait span in that submit) and give the exact int16 audio
+     bit for bit; the mu-law wire (the exact and the speculative
+     transfers' rows are the numpy encoder's bytes of the int16 audio,
+     the header's frame counts the exact ones; the CLI's --output-raw
+     --raw-format mulaw --wire-format mulaw); a forced bucket overflow,
+     a forced margin shortfall and a row past the ladder, each the exact
+     audio, with 1 + 2 launches per decode and re-decode; the estimator
+     snapshot (written outside the checkout under $PIPER_TPU_CACHE, set
+     to the smoke's temporary directory) loaded by a fresh process whose
+     first batch goes speculative, and a corrupt one deleted and ignored.
 
 Then the card's nvidia-smi line, one JSON line of per-kernel numbers
-(launches summed over the CLI main paths of phases 3 and 6 and the
-entry points of phase 8), and the device line. Every phase prints its
+(launches summed over the CLI main paths of phases 3 and 6, the entry
+points of phase 8 and phase 9's batches and CLI runs), and the device
+line. Every phase prints its
 start, its end and its wall seconds; a phase that raises is a failed
 check, and the failed checks are listed on stdout and on stderr before
 a non-zero exit.
@@ -118,7 +134,10 @@ Needs one CUDA card; prints no result and exits non-zero without one.
 
 measures the checkout in DIR instead (see measure()): run it on this
 checkout and on its parent, unpacked into a directory .gitignore lists,
-in turns within one call, to compare two versions on one card.
+in turns within one call, to compare two versions on one card. Its
+line adds, where the checkout has them, each wire's transfer bytes per
+audio-second, the window's batches by path and
+python -m piper_tpu_torch.tools.profile_stages's stage times.
 """
 
 from __future__ import annotations
@@ -127,6 +146,7 @@ import contextlib
 import io
 import json
 import math
+import os
 import shutil
 import subprocess
 import sys
@@ -746,8 +766,8 @@ def timed_streams(port, path, n):
 
 def check_graphs(voice) -> None:
     """Each graph kind, replayed with new inputs, gives the bits of its
-    function run eagerly on the same inputs: the encode and flow graphs
-    of a two-bucket batch and the streamed chunk's graph."""
+    function run eagerly on the same inputs: the encode and frame-window
+    graphs of a two-bucket batch and the streamed chunk's graph."""
     import torch
 
     from piper_tpu_torch.runtime.streaming import StreamingDecoder
@@ -776,7 +796,7 @@ def check_graphs(voice) -> None:
             eager = fn(*inputs)
             same += all(torch.equal(e, o) for e, o in zip(eager, out))
     kinds = sorted({key[0] for key, *_ in calls})
-    check(kinds == ["chunk", "encode", "flow"] and same == len(calls),
+    check(kinds == ["chunk", "encode", "frames"] and same == len(calls),
           f"CUDA graph replay equals eager execution bit for bit: {same} of {len(calls)} replays "
           f"({', '.join(kinds)}; {voice.model_cfg.vocoder}"
           f"{', VITS2' if voice.model_cfg.flow_transformer else ''}, {voice.precision})")
@@ -915,20 +935,21 @@ def phase_serving(cfg, params_np, card, peaks):
         solo = sorted(a[3] for a in alone)
         print(f"serving: 16 GETs one at a time (smoke observation, 16 samples): latency p50 "
               f"{np.percentile(solo, 50):.4f} s, max {solo[-1]:.4f} s  [{card}]", flush=True)
-        # (rows, decodes, seconds in submit) of each batch the batcher
-        # sends; a decode is one phoneme bucket's encode and vocode
+        # (rows, handle, seconds in submit) of each batch the batcher
+        # sends; a decode is one frame bucket's vocode of an encode group
+        # (collect() adds the speculative path's re-decodes to the handle)
         submits = []
         submit = voice.submit
 
         def timed_submit(ids_list, **kw):
             t0 = time.perf_counter()
             handle = submit(ids_list, **kw)
-            submits.append((len(ids_list), handle["decodes"], round(time.perf_counter() - t0, 4)))
+            submits.append((len(ids_list), handle, round(time.perf_counter() - t0, 4)))
             return handle
 
         def check_launches(what):
             n_mrf, n_fused = V.mrf_fused.launches, V.fused_upsample_mrf.launches
-            decodes = sum(d for _, d, _ in submits)
+            decodes = sum(h["decodes"] for _, h, _ in submits)
             check(decodes >= 1 and n_mrf == decodes and n_fused == 2 * decodes,
                   f"{what} launched mrf_fused {n_mrf} and fused_upsample_mrf {n_fused} times for "
                   f"{decodes} decodes in {len(submits)} batches (once and twice per decode)")
@@ -958,7 +979,8 @@ def phase_serving(cfg, params_np, card, peaks):
                 lat = sorted(g[3] for _, g in got)
                 print(f"serving: {run} burst (smoke observation, 16 samples), 16 concurrent GETs in "
                       f"{wall:.4f} s, latency min {lat[0]:.4f} s, max {lat[-1]:.4f} s; {batches} batches, "
-                      f"(rows, decodes, s in submit) {submits}  [{card}]", flush=True)
+                      f"(rows, decodes, s in submit) {[(r, h['decodes'], t) for r, h, t in submits]}"
+                      f"  [{card}]", flush=True)
             check(0 < batches < 16, f"the batcher coalesced: {batches} batches for 16 requests")
             check_launches(f"the {run} burst")
 
@@ -969,6 +991,7 @@ def phase_serving(cfg, params_np, card, peaks):
         for grouping in ("uniform", "bucketed"):
             voice.decode_grouping = grouping
             before = dict(voice.batcher.stats)
+            paths0 = dict(voice.path_counts)
             reset_counts()
             voice.timer = StageTimer()
             got, wall = clients(port, paths, 16, WINDOW_ROUNDS)
@@ -981,13 +1004,17 @@ def phase_serving(cfg, params_np, card, peaks):
                   f"window ({grouping}): {n} GETs sent, {n_ok} succeeded, {same} equal the request "
                   "served alone")
             check_launches(f"the window ({grouping})")
+            moved = {k: voice.path_counts[k] - paths0[k] for k in paths0}
+            check(moved["speculative"] > 0 and moved["speculative"] >= batches - 1,
+                  f"window ({grouping}) runs speculative: batches by path and rows missed {moved} "
+                  f"of {batches} batches")
             lat = np.array([g[3] for _, g in got])
             rows = [r for r, _, _ in submits]
             print(f"serving: window ({grouping}) of {n} GETs from 16 closed-loop clients in {wall} s: "
                   f"{n / wall} requests/s, latency p50 {np.percentile(lat, 50)} s, p99 "
                   f"{np.percentile(lat, 99)} s, max {lat.max()} s; {batches} batches, rows per batch mean "
                   f"{np.mean(rows) if rows else 0:.2f}, decodes per batch mean "
-                  f"{np.mean([d for _, d, _ in submits]) if submits else 0:.2f}, s in submit p50 "
+                  f"{np.mean([h['decodes'] for _, h, _ in submits]) if submits else 0:.2f}, s in submit p50 "
                   f"{np.percentile([t for _, _, t in submits], 50) if submits else 0}  [{card}]", flush=True)
             print(f"serving: window ({grouping}), host time of submit by span (StageTimer): "
                   f"{json.dumps(spans)}", flush=True)
@@ -1251,13 +1278,16 @@ def long_row(voice, target: int):
     from piper_tpu_torch.runtime.batching import pick_bucket
     from piper_tpu_torch.runtime.voice import utterance_seed
 
+    import torch
+
     ids = [1, 0] + [40 + (7 * i) % 200 for i in range(250)] + [0, 2]
     bucket = pick_bucket(len(ids), voice.phoneme_buckets)
     scale, frames = 1.0, 0
     for _ in range(6):
         syn = SynthesisConfig(seed=9, length_scale=scale, noise_w=0.0)
-        enc, f = voice._encode([ids], [utterance_seed(9, ids)], bucket, syn)
-        frames = voice._read_frames([f])[0][0]
+        with torch.inference_mode():  # a captured encode graph's static inputs
+            enc, f = voice._encode([ids], [utterance_seed(9, ids)], bucket, syn)
+            frames = voice._read_frames([f])[0][0]
         if abs(frames - target) <= target // 100:
             break
         scale *= target / max(frames, 1)
@@ -1266,10 +1296,14 @@ def long_row(voice, target: int):
 
 def phase_long_row(cfg, params_np, card: str, peaks) -> None:
     """One row past the 4096-frame ladder at medium (~12,000 frames), in
-    fast and parity precision: decoded in one call (its flow eagerly,
-    the generator through both kernels), its full length, peak device
-    memory and wall; then both kernels against their plain versions at
-    B = 1 and that length."""
+    fast and parity precision: decoded alone at its own frame count (its
+    frame windows, then both kernels), its full length, peak device
+    memory and wall; in fast precision the estimator calibrated by a
+    short batch first sends it down the speculative path, which decodes
+    it at the top bucket, reads its true length from the transfer's
+    header and re-decodes it in the long form (as the JAX package does),
+    so each run is two decodes; then both kernels against their plain
+    versions at B = 1 and that length."""
     import numpy as np
     import torch
 
@@ -1284,23 +1318,27 @@ def phase_long_row(cfg, params_np, card: str, peaks) -> None:
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         zero_counts()
-        walls = []
+        walls, decodes = [], 0
         for _ in range(2):  # the first call at this length, then again
             t0 = time.perf_counter()
             handle = voice.submit([ids], syn=syn)
             audio = voice.collect(handle)[0]
             walls.append(time.perf_counter() - t0)
+            decodes += handle["decodes"]
         n_mrf, n_fused = read_counts()
         peak = torch.cuda.max_memory_allocated()
         u = cfg.upsample_factor
         top = voice.frame_buckets[-1]
-        check(frames > top and len(audio) == frames * u and handle["decodes"] == 1
-              and bool(np.isfinite(audio).all()) and float(np.abs(audio).max()) > 0,
+        per_run = 2 if precision == "fast" else 1
+        check(frames > top and len(audio) == frames * u and handle["decodes"] == per_run
+              and bool(np.isfinite(audio).all()) and float(np.abs(audio).max()) > 0
+              and (precision == "parity" or voice.path_counts["longform"] == 2),
               f"long row ({precision}): {frames} frames past the {top}-frame ladder, "
-              f"{len(audio)} samples = frames x {u}, one decode, finite, non-zero")
-        check(n_mrf == 2 and n_fused == 4,
+              f"{len(audio)} samples = frames x {u}, {handle['decodes']} decodes a run, finite, "
+              f"non-zero; paths {voice.path_counts}")
+        check(n_mrf == decodes and n_fused == 2 * decodes,
               f"long row ({precision}), two runs, launched mrf_fused {n_mrf} and fused_upsample_mrf "
-              f"{n_fused} times")
+              f"{n_fused} times for {decodes} decodes")
         print(f"long row ({precision}, medium, {len(ids)} ids, length_scale {syn.length_scale:.4f}): "
               f"{frames} frames, {len(audio) / cfg.audio.sample_rate:.2f} audio-s in {walls[0]:.4f} s of wall "
               f"(first call at this length), {walls[1]:.4f} s (second); peak device memory {peak / 2**20:.1f} MiB "
@@ -1353,18 +1391,28 @@ def write_variant_voices(out: Path):
     return voices
 
 
+class Decodes(list):
+    """Handles of submitted batches; iterating yields each one's decodes,
+    read when iterated: a speculative batch's collect() adds its
+    re-decodes to its handle."""
+
+    def __iter__(self):
+        return (h["decodes"] for h in list.__iter__(self))
+
+
 @contextlib.contextmanager
 def counting_decodes():
     """Every TorchVoice.submit's decodes, from any caller (the CLI, the
-    batcher's dispatcher): yields the list each submit appends to."""
+    batcher's dispatcher): yields the list each submit appends its handle
+    to (sum() of it counts the decodes, re-decodes included)."""
     from piper_tpu_torch.runtime.voice import TorchVoice
 
-    decodes = []
+    decodes = Decodes()
     submit = TorchVoice.submit
 
     def counted(self, *a, **k):
         handle = submit(self, *a, **k)
-        decodes.append(handle["decodes"])
+        decodes.append(handle)
         return handle
 
     TorchVoice.submit = counted
@@ -1441,18 +1489,17 @@ def busy_ms(fn, reps: int = 3) -> float:
 
 
 def variant_costs(voice, name: str, card: str) -> None:
-    """What this variant's design costs on the card, at the warm batch's
+    """What this variant's decode costs on the card, at the warm batch's
     shapes (16 rows of 437-490 frames, frame bucket 656), in device ms
-    (busy_ms) and event ms (time_ms). VITS2: the reverse flow of the 16
-    rows at their own bucket in graphs of flow_graph_rows(656) rows (the
-    decode path) against a graph of its own per row, and the flow's
-    attention blocks (the flow over the rows without them). MB-iSTFT:
-    the generator row by row at each row's length (the decode path)
-    against the whole batch under the mask (over which a bf16 row
-    moved)."""
+    (busy_ms) and event ms (time_ms): the frame-level stages in frame
+    windows (the decode path since fault 17: each frame's noise, the
+    latents, the reverse flow and the generator's plain stages; MB-iSTFT:
+    its whole generator) against the same stages eagerly over the 16 rows
+    at the bucket under the mask (over which rows move with their
+    bucket). VITS2 adds the flow alone, eagerly, with and without its
+    attention blocks."""
     import torch
 
-    from piper_tpu_torch.models.vits import istft_generator as MB
     from piper_tpu_torch.models.vits import model as M
     from piper_tpu_torch.runtime import batching
     from piper_tpu_torch.runtime import voice as RV
@@ -1460,40 +1507,29 @@ def variant_costs(voice, name: str, card: str) -> None:
     cfg, p, dt = voice.model_cfg, voice.params, voice.dtype
     g = torch.Generator().manual_seed(4)
     frames = [437 + (7 * i) % 54 for i in range(16)]
-    t = batching.pick_bucket(max(frames), voice.frame_buckets) if cfg.flow_transformer else max(frames)
+    t = batching.pick_bucket(max(frames), voice.frame_buckets)
     mask = (torch.arange(t)[None, :] < torch.tensor(frames)[:, None])[..., None].to("cuda", dt)
     z = torch.randn((16, t, cfg.inter_channels), generator=g).to("cuda", dt) * mask
+    sid = torch.ones(16, dtype=torch.long, device="cuda") if cfg.num_speakers > 1 else None
+    gemb = M.speaker_embedding(p, cfg, sid)
+    keys, scale = voice._noise_inputs(list(range(16)), _syn(seed=0))
+    windows = [-(-f // RV.WINDOW_FRAMES) for f in frames]
+    runs = [
+        (f"frame windows ({voice._win_rows} a graph, {sum(windows)} windows; the decode path)",
+         lambda: voice._frames(z, z, mask, keys, scale, sid, windows)),
+        ("eager over the rows at the bucket under the mask",
+         lambda: M.synthesizer_frames(p, z, mask, cfg=cfg, g=gemb)),
+    ]
     if cfg.flow_transformer:
-        sid = torch.ones(16, dtype=torch.long, device="cuda")
         bare = {**p, "flow": {"layers": [{k: v for k, v in lp.items() if k not in ("attn", "attn_norm")}
                                          for lp in p["flow"]["layers"]]}}
-        noise_in = voice._noise_inputs(list(range(16)), _syn(seed=0))
-
-        def by_rows(budget):
-            saved, RV.FLOW_FRAMES = RV.FLOW_FRAMES, budget
-            try:  # the flow graphs draw each row's frame noise too
-                return voice._flow_rows(z, z, mask, *noise_in, sid, frames)
-            finally:
-                RV.FLOW_FRAMES = saved
-
-        runs = (
-            (f"graphs of {RV.flow_graph_rows(t, dt)} rows with their latents (the decode path)",
-             lambda: by_rows(RV.FLOW_FRAMES)),
-            ("a graph per row with its latents", lambda: by_rows(0)),
-            ("eager, over the rows, with attention",
-             lambda: M.synthesizer_flow(p, z, mask, cfg=cfg, g=M.speaker_embedding(p, cfg, sid))),
-            ("eager, over the rows, without attention",
-             lambda: M.synthesizer_flow(bare, z, mask, cfg=cfg, g=M.speaker_embedding(p, cfg, sid))),
-        )
-        what = f"reverse flow, 16 rows at {t} frames"
-    else:
-        runs = (
-            ("row by row (the decode path)",
-             lambda: MB.mb_istft_generator_rows(p["dec"], z, frames, cfg=cfg, tables=p["dec_mb"])),
-            ("whole batch under the mask",
-             lambda: MB.mb_istft_generator_apply(p["dec"], z, mask, cfg=cfg, tables=p["dec_mb"])),
-        )
-        what = f"generator, 16 rows of {min(frames)}-{max(frames)} frames"
+        runs += [
+            ("the flow alone, eager, with attention",
+             lambda: M.synthesizer_flow(p, z, mask, cfg=cfg, g=gemb)),
+            ("the flow alone, eager, without attention",
+             lambda: M.synthesizer_flow(bare, z, mask, cfg=cfg, g=gemb)),
+        ]
+    what = f"frame-level stages, 16 rows of {min(frames)}-{max(frames)} frames (bucket {t})"
     for how, fn in runs:
         dev_ms = busy_ms(fn)
         with torch.inference_mode():
@@ -1578,21 +1614,18 @@ def phase_variant(tmp: Path, name: str, path: Path, cfg, params_np, card: str, h
                   f"{hifigan_ms:.2f} ms (phase 3, same rows)  [{card}]", flush=True)
             variant_costs(voice, name, card)
             if cfg.vocoder == "mb_istft":
-                generate = M.synthesizer_generate
-                counts = {}
-
-                def watched(*a, **k):
-                    out, counts["ops"], counts["off"] = ops_off_the_card(lambda: generate(*a, **k))
-                    return out
-
-                M.synthesizer_generate = watched
-                try:
-                    voice.synthesize_ids_batch(rows[:4], syn=_syn(seed=7))
-                finally:
-                    M.synthesizer_generate = generate
-                check(counts.get("ops", 0) > 0 and counts["off"] == 0,
-                      f"{name}: the MB-iSTFT generator ran {counts.get('ops')} ops, {counts.get('off')} "
-                      "of them on tensors off the card")
+                # the frame windows' function eagerly (a replay dispatches
+                # no op): the flow and the whole generator, iSTFT and PQMF
+                g = torch.Generator().manual_seed(6)
+                mask = (torch.arange(336)[None, :] < torch.tensor([336, 200, 90, 17])[:, None])
+                mask = mask[..., None].to("cuda", voice.dtype)
+                z = torch.randn((4, 336, cfg.inter_channels), generator=g).to("cuda", voice.dtype) * mask
+                with torch.inference_mode():
+                    _, ops, off = ops_off_the_card(
+                        lambda: M.synthesizer_frames(voice.params, z, mask, cfg=cfg))
+                check(ops > 0 and off == 0,
+                      f"{name}: the MB-iSTFT generator ran {ops} ops, {off} of them on tensors off "
+                      "the card")
         # 16 requests, 4 texts; VITS2: each text and seed twice, speaker 0 then 1
         paths = [f"/?text={urllib.parse.quote(TEXTS[(j // 2) % len(TEXTS)])}&seed={j // 2}"
                  + (f"&speaker_id={j % 2}" if vits2 else "") for j in range(16)]
@@ -2374,7 +2407,229 @@ def phase_voice_builder(tmp: Path, card: str) -> dict:
     return launches
 
 
-SPANNED = ("submit", "_encode", "_read_frames", "_latents", "_flow")
+# ---------------------------------------------------------------------------
+# Phase 9: speculative serving
+# ---------------------------------------------------------------------------
+
+SPEC_LENGTHS = (8, 20, 35, 60, 90, 130, 180, 240)  # ids of phase 9's rows: 3 phoneme buckets
+TRAINED_MS2 = ROOT / "tests" / "data" / "voice_xlow_ms2_trained_fp16.npz"
+ESTIMATOR_PROBE = """
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import torch
+from piper_tpu_torch.config import SynthesisConfig
+from piper_tpu_torch.runtime.voice import TorchVoice
+voice = TorchVoice.load(sys.argv[2], precision="fast", device="cuda", estimator_cache=True, seed=0)
+loaded = voice._ratio is not None
+exists = voice._estimator_cache_path.exists()
+voice.synthesize_ids_batch(json.loads(sys.argv[3]), syn=SynthesisConfig(seed=1))
+print(json.dumps({"loaded": loaded, "snapshot_after_load": exists, "paths": voice.path_counts,
+                  "snapshot": str(voice._estimator_cache_path)}))
+"""
+
+
+def spec_rows(num_symbols: int, seed: int = 0):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [[1, 0] + [int(x) for s in rng.integers(3, num_symbols, n) for x in (s, 0)] + [2]
+            for n in SPEC_LENGTHS]
+
+
+def exact_then_speculative(voice, name: str, rows, syn, card: str):
+    """The exact batch (the first: it calibrates the estimator), then the
+    same rows again: the voice's path counter shows the speculative path,
+    that submit has no frames_wait span, and its int16 audio equals the
+    exact batch's bit for bit. Returns (exact, speculative audio)."""
+    import numpy as np
+
+    from piper_tpu_torch.runtime.profiling import StageTimer
+
+    seeds = list(range(len(rows)))
+    voice.timer = StageTimer()
+    t0 = time.perf_counter()
+    exact = voice.collect(voice.submit(rows, syn=syn, row_seeds=seeds))
+    t_exact = time.perf_counter() - t0
+    waits, before = voice.timer.counts.get("frames_wait", 0), dict(voice.path_counts)
+    t0 = time.perf_counter()
+    handle = voice.submit(rows, syn=syn, row_seeds=seeds)
+    t_submit = time.perf_counter() - t0
+    spec = voice.collect(handle)
+    t_spec = time.perf_counter() - t0
+    waits_after, voice.timer = voice.timer.counts.get("frames_wait", 0), None
+    check("spec" in handle and voice.path_counts["speculative"] == before["speculative"] + 1
+          and voice.path_counts["exact"] == before["exact"],
+          f"{name}: the batch after the exact one took the speculative path ({voice.path_counts})")
+    check(waits == 1 and waits_after == waits, f"{name}: frames_wait spans: {waits} in the exact "
+          f"batch's submit, {waits_after - waits} in the speculative one's")
+    same = sum(len(a) == len(b) and np.array_equal(a, b) for a, b in zip(exact, spec))
+    check(same == len(rows) and min(len(a) for a in exact) > 0,
+          f"{name}: {same} of {len(rows)} rows of the speculative batch equal the exact batch's int16 "
+          "audio bit for bit")
+    frames = [len(a) // voice.model_cfg.upsample_factor for a in exact]
+    print(f"{name}: {len(rows)} rows of {min(frames)}-{max(frames)} frames; exact batch {t_exact:.4f} s "
+          f"(first calls), speculative submit {t_submit:.4f} s, with collect {t_spec:.4f} s (first "
+          f"calls at its buckets); estimator {voice._ratio}, margin {voice.spec_margin}  [{card}]",
+          flush=True)
+    return exact, spec
+
+
+def phase_speculative(tmp: Path, cfg, params_np, variants: Path, card: str) -> dict:
+    """9: the speculative serving path on the card, in fast precision:
+    phase 3's medium voice, phase 6's VITS2 voice and the trained
+    two-speaker x-low voice, each an exact batch then the same rows
+    speculative; the mu-law wire (exact and speculative transfers, the
+    CLI); a forced bucket overflow, a forced margin shortfall and a row
+    past the ladder; the estimator snapshot in a fresh process, and a
+    corrupt one. Returns the kernels' launches of the phase's batches and
+    CLI runs."""
+    import numpy as np
+
+    from piper_tpu_torch.config import SynthesisConfig
+    from piper_tpu_torch.runtime import codec
+    from piper_tpu_torch.runtime.voice import TorchVoice, read_header
+    from piper_tpu_torch.runtime.wav import int16_to_float
+    from piper_tpu_torch.weights.native import load_native
+
+    u = cfg.upsample_factor
+    rows = spec_rows(cfg.num_symbols)
+    syn = SynthesisConfig(seed=3)
+    launches = {"mrf_fused": 0, "fused_upsample_mrf": 0}
+
+    def counted(fn):
+        """fn() with the kernels' launches counted from 0 and added to the
+        phase's sums: (result, mrf_fused launches, fused launches)."""
+        zero_counts()
+        out = fn()
+        n_mrf, n_fused = read_counts()
+        launches["mrf_fused"] += n_mrf
+        launches["fused_upsample_mrf"] += n_fused
+        return out, n_mrf, n_fused
+
+    medium = TorchVoice(params_np, cfg, _voice_cfg(cfg), precision="fast", device="cuda", seed=0)
+    (exact, _), _, _ = counted(lambda: exact_then_speculative(medium, "medium", rows, syn, card))
+    for name, path, speaker in (("VITS2 (post perturbed)", variants / "vits2.npz", 1),
+                                ("trained two-speaker x-low", TRAINED_MS2, 1)):
+        params, vcfg = load_native(str(path))
+        voice = TorchVoice(params, vcfg, _voice_cfg(vcfg), precision="fast", device="cuda", seed=0)
+        exact_then_speculative(voice, name, spec_rows(vcfg.num_symbols),
+                               SynthesisConfig(seed=3, speaker_id=speaker), card)
+        del voice
+
+    # the mu-law wire: the exact path's transfer and the speculative one's
+    # rows are the numpy encoder's bytes of the int16 path's samples, its
+    # header the exact frame counts
+    ref16 = [np.round(a * 32767).astype(np.int16) for a in exact]
+    seeds = list(range(len(rows)))
+    mulaw = TorchVoice(params_np, cfg, _voice_cfg(cfg), precision="fast", device="cuda", seed=0,
+                       wire_format="mulaw")
+    first = mulaw.submit(rows, syn=syn, row_seeds=seeds)
+    got = mulaw.collect(first)
+    host = first["host"].numpy()
+    same = sum(np.array_equal(host[st : st + n], codec.mulaw_encode(ref16[i])) for i, st, n in first["rows"])
+    check(host.dtype == np.uint8 and same == len(rows),
+          f"mu-law wire, exact path: {same} of {len(rows)} rows' bytes equal the numpy encoder's of the "
+          "int16 wire's samples")
+    handle = mulaw.submit(rows, syn=syn, row_seeds=seeds)
+    flat = handle["host"]
+    spec = mulaw.collect(handle)
+    flat = flat.numpy()
+    hdr = read_header(flat, len(rows))
+    want = [len(ref16[r[0]]) // u for r in handle["spec"]["rows"]]
+    check("spec" in handle and list(hdr) == want,
+          f"mu-law wire, speculative path: the header's frame counts equal the exact path's ({want[:4]}...)")
+    out, ok, fit = handle["spec"]["a0"], 0, 0
+    for r in handle["spec"]["rows"]:
+        n = len(ref16[r[0]])
+        if out + n <= handle["spec"]["total"]:
+            fit += 1
+            ok += np.array_equal(flat[out : out + n], codec.mulaw_encode(ref16[r[0]]))
+        out += n
+    dec = sum(np.array_equal(a, b) and np.array_equal(a, int16_to_float(codec.mulaw_decode(codec.mulaw_encode(w))))
+              for a, b, w in zip(got, spec, ref16))
+    check(fit > 0 and ok == fit and dec == len(rows),
+          f"mu-law wire, speculative path: {ok} of the {fit} rows in the transfer equal the numpy "
+          f"encoder's bytes; {dec} of {len(rows)} rows collect to the int16 path's mu-law audio")
+    print(f"mu-law wire: {flat.nbytes} bytes for {sum(len(a) for a in exact) / cfg.audio.sample_rate:.2f} "
+          f"audio-s in the speculative transfer  [{card}]", flush=True)
+    del mulaw
+    out_raw = {}
+    for wire in ("int16", "mulaw"):
+        buf = io.BytesIO()
+        saved = sys.stdout
+        sys.stdout = type("Out", (), {"buffer": buf, "write": lambda self, x: None,
+                                      "flush": lambda self: None})()
+        try:
+            counted(lambda: run_cli(["-m", str(tmp / "voice.npz"), "--output-raw", "--raw-format", "mulaw",
+                                     "--wire-format", wire, "--seed", "1", "-q"], TEXTS[:2]))
+        finally:
+            sys.stdout = saved
+        out_raw[wire] = buf.getvalue()
+    check(len(out_raw["mulaw"]) == len(out_raw["int16"]) > 0,
+          f"the CLI's --output-raw --raw-format mulaw with --wire-format mulaw: {len(out_raw['mulaw'])} "
+          f"bytes, as with --wire-format int16 ({len(out_raw['int16'])})")
+
+    # the misses, on the calibrated medium voice: each against the exact audio
+    def miss(what, setup, count, rows_, syn_, ref):
+        setup()
+        before = dict(medium.path_counts)
+
+        def run():
+            handle = medium.submit(rows_, syn=syn_, row_seeds=list(range(len(rows_))))
+            planned = handle["decodes"]
+            return handle, planned, medium.collect(handle)
+
+        (handle, planned, got), n_mrf, n_fused = counted(run)
+        moved = medium.path_counts[count] - before[count]
+        same = sum(np.array_equal(a, b) for a, b in zip(got, ref))
+        check("spec" in handle and moved > 0 and same == len(ref),
+              f"{what}: {moved} rows {count}, {same} of {len(ref)} rows equal the exact audio bit for bit")
+        check(n_mrf == handle["decodes"] and n_fused == 2 * handle["decodes"],
+              f"{what}: mrf_fused {n_mrf} and fused_upsample_mrf {n_fused} launches for "
+              f"{planned} decodes and {handle['decodes'] - planned} re-decodes (1 + 2 each)")
+
+    saved = (medium._ratio, medium._spec_margin)
+    miss("forced bucket overflow (estimator 0.5 frames per id)",
+         lambda: setattr(medium, "_ratio", (0.5, 0.5)), "redecoded", rows, syn, exact)
+    medium._ratio, medium._spec_margin = saved
+    miss("forced margin shortfall (margin 0.25)", lambda: setattr(medium, "_spec_margin", 0.25),
+         "refetched", rows, syn, exact)
+    medium._ratio, medium._spec_margin = saved
+    ids, lsyn, frames = long_row(medium, 5000)
+    solo = TorchVoice(params_np, cfg, _voice_cfg(cfg), precision="fast", device="cuda", seed=0)
+    long_exact = solo.collect(solo.submit([ids], syn=lsyn, row_seeds=[0]))
+    del solo
+    miss(f"a row past the ladder ({frames} frames)", lambda: None, "longform", [ids], lsyn, long_exact)
+
+    # the estimator snapshot: a fresh process starts speculative; a
+    # corrupt snapshot is deleted and ignored
+    cached = TorchVoice.load(tmp / "voice.npz", precision="fast", device="cuda", estimator_cache=True, seed=0)
+    cached.synthesize_ids_batch(rows[:4], syn=syn)
+    snap = cached._estimator_cache_path
+    check(snap.exists() and ROOT not in snap.parents,
+          f"estimator snapshot written outside the checkout: {snap}")
+    del cached
+    for what, corrupt in (("fresh process", None), ("corrupt snapshot", "{not json")):
+        if corrupt is not None:
+            snap.write_text(corrupt)
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-c", ESTIMATOR_PROBE, str(ROOT), str(tmp / "voice.npz"),
+                              json.dumps(rows[:4])], capture_output=True, text=True, timeout=300)
+        probe = json.loads(res.stdout.strip().splitlines()[-1]) if res.returncode == 0 else {}
+        if corrupt is None:
+            check(probe.get("loaded") is True and probe["paths"]["speculative"] == 1
+                  and probe["paths"]["exact"] == 0,
+                  f"estimator cache, {what} ({time.perf_counter() - t0:.1f} s): loaded the snapshot, its "
+                  f"first batch went speculative: {probe or res.stderr[-400:]}")
+        else:
+            check(probe.get("loaded") is False and probe["snapshot_after_load"] is False
+                  and probe["paths"]["exact"] == 1,
+                  f"estimator cache, {what} ({time.perf_counter() - t0:.1f} s): deleted and ignored, the "
+                  f"first batch exact: {probe or res.stderr[-400:]}")
+    return launches
+
+
+SPANNED = ("submit", "_encode", "_read_frames", "_latents", "_flow", "_vocode")
 
 
 def span_methods(cls):
@@ -2453,6 +2708,7 @@ def measure(root: str) -> int:
     out["build_s"] = time.perf_counter() - t0
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
+        os.environ["PIPER_TPU_CACHE"] = str(tmp / "cache")  # estimator snapshots, outside the checkout
         cfg, params_np = make_voice(tmp)
         for run in ("cold", "second"):
             spans.clear()
@@ -2482,6 +2738,17 @@ def measure(root: str) -> int:
         "top_kernels_ms": [[e.key[:60], e.self_device_time_total / 1e3, e.count] for e in
                            sorted(events, key=lambda e: -e.self_device_time_total)[:8]],
     }
+    # the transfer's bytes per audio-second of the warm batch on each wire
+    wires = {}
+    for wire in ("int16", "mulaw") if hasattr(fast, "set_wire_format") else ("int16",):
+        if wire != "int16":
+            fast.set_wire_format(wire)
+        handle = fast.submit(rows, syn=_syn(seed=7))
+        audio_s = sum(len(a) for a in fast.collect(handle)) / cfg.audio.sample_rate
+        nbytes = handle["host"].numel() * handle["host"].element_size()
+        wires[wire] = {"bytes": nbytes, "audio_s": audio_s, "bytes_per_audio_s": nbytes / audio_s,
+                       "path": "speculative" if "spec" in handle else "exact"}
+    out["wire"] = wires
     del fast
 
     voice = RV.TorchVoice(params_np, cfg, _voice_cfg(cfg), precision="fast", device="cuda", seed=0)
@@ -2507,6 +2774,7 @@ def measure(root: str) -> int:
             "requests_per_s": len(got) / wall, "p50_s": float(np.percentile(lat, 50)),
             "p99_s": float(np.percentile(lat, 99)),
             "batches": voice.batcher.stats["batches"] - batches0, "decodes": sum(decodes),
+            "paths": dict(getattr(voice, "path_counts", {})),
             **per_submit_ms(spans),
         }
         n, pwall, busy = profiled_window(port, paths, WINDOW_ROUNDS)
@@ -2524,6 +2792,11 @@ def measure(root: str) -> int:
         }
     finally:
         stop_serving(server, thread, voice)
+    if (Path(root) / "piper_tpu_torch" / "tools" / "profile_stages.py").exists():
+        res = subprocess.run([sys.executable, "-m", "piper_tpu_torch.tools.profile_stages"],
+                             cwd=root, capture_output=True, text=True, timeout=900)
+        out["profile_stages"] = (json.loads(res.stdout.strip().splitlines()[-1]) if res.returncode == 0
+                                 else {"error": res.stderr[-300:]})
     print(json.dumps(out), flush=True)
     return 0
 
@@ -2568,6 +2841,9 @@ def main(argv) -> int:
 
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
+        # the estimator snapshots of every voice loaded with the cache (the
+        # CLI's, the server's, the benchmark's), outside the checkout
+        os.environ["PIPER_TPU_CACHE"] = str(tmp / "cache")
         cfg, params_np = make_voice(tmp)
         with phase("2, kernels against their plain versions"):
             results = phase_kernels(cfg, params_np, peaks)
@@ -2595,6 +2871,10 @@ def main(argv) -> int:
         # its entry points' launches join the sums
         with phase("8, the voice builder's path"):
             for k, n in phase_voice_builder(tmp, smi).items():
+                launches[k] += n
+        # 9. speculative serving; its CLI runs' launches join the sums
+        with phase("9, speculative serving"):
+            for k, n in phase_speculative(tmp, cfg, params_np, tmp / "variants" / "voices", smi).items():
                 launches[k] += n
 
     if FAILURES:

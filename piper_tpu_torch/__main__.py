@@ -61,16 +61,6 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--noise-scale", "--noise_scale", type=float)
     parser.add_argument("--noise-w", "--noise_w", type=float)
     parser.add_argument("--sentence-silence", "--sentence_silence", type=float, default=0.0)
-    parser.add_argument(
-        "--pack-total", "--pack_total", choices=["quantum", "pow2"], default=None,
-        help="accepted for the JAX package's CLI and has no effect: it sizes XLA's packed "
-             "transfers there, and the port compiles no such shapes",
-    )
-    parser.add_argument(
-        "--decode-grouping", "--decode_grouping",
-        choices=["bucketed", "uniform", "packed"], default=None,
-        help="decode planner (default: bucketed for the CLI, uniform for the HTTP server)",
-    )
     parser.add_argument("--seed", type=int, help="Deterministic synthesis seed")
     parser.add_argument("--batch", action="store_true",
                         help="With --output-dir: synthesise all stdin lines as one batch")
@@ -98,6 +88,21 @@ def add_voice_arguments(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--precision", choices=["parity", "fast"], default="fast")
     parser.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                         help="cuda (default) or cpu; never chosen for you")
+    parser.add_argument(
+        "--decode-grouping", "--decode_grouping",
+        choices=["bucketed", "uniform", "packed"], default=None,
+        help="decode planner (default: bucketed for the CLI, uniform for the HTTP server)",
+    )
+    parser.add_argument(
+        "--pack-total", "--pack_total", choices=["quantum", "pow2"], default=None,
+        help="packed transfer sizing: 'quantum' rounds to 65,536 samples (default for the "
+             "CLI), 'pow2' to a power of two (default for the HTTP server)",
+    )
+    parser.add_argument(
+        "--wire-format", "--wire_format", choices=["int16", "mulaw"], default="int16",
+        help="device->host transfer format: int16 PCM (default, lossless) or G.711 mu-law "
+             "encoded on the device (1 byte a sample, lossy; needs --precision fast)",
+    )
 
 
 def load_voice(args) -> TorchVoice:
@@ -145,7 +150,9 @@ def load_voice(args) -> TorchVoice:
             )
     return TorchVoice.load(
         args.model, args.config, precision=args.precision, device=args.device,
-        decode_grouping=getattr(args, "decode_grouping", None) or "bucketed",
+        decode_grouping=args.decode_grouping or "bucketed",
+        wire_format=args.wire_format, pack_total=args.pack_total or "quantum",
+        estimator_cache=True,
     )
 
 

@@ -121,7 +121,7 @@ def local_attention_apply(
     d)). Slots past the sequence or its valid length score -1e4. As in
     JAX, the scores are float32 products of x.dtype operands and the
     weights times the values run in x.dtype. Its callers run it at one
-    shape per row (the flow graphs, the chunk window), which keeps a
+    shape per row (the frame windows, the chunk window), which keeps a
     row's bits (PERF.md)."""
     b, t, c = x.shape
     k_channels = c // n_heads

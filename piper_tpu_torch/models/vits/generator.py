@@ -303,68 +303,104 @@ def _nwc_stage_masked(p, i: int, x, lens: torch.Tensor, cfg: ModelConfig):
     return _mrf_nwc(p["resblocks"][i], y * mask, mask, cfg)
 
 
-def generator_tm_apply(
-    p: Params,
-    tm: Params,
-    x: torch.Tensor,
-    frame_lengths: torch.Tensor,
-    *,
-    cfg: ModelConfig,
-    g: Optional[torch.Tensor] = None,
-    row_frames: Optional[Sequence[int]] = None,
-    fixed_shape: bool = False,
-) -> torch.Tensor:
-    """Time-major generator. x: (B, T_frames, C) pre-masked latent;
-    frame_lengths: (B,) valid frames. Returns (B, T*u_total); samples
-    past each row's length are not defined (compare valid samples).
-    conv_pre and the plain stages before the kernels run row by row
-    (_conv_pre_rows, _nwc_stage_rows, _tconv_tm_rows), so each row gives
-    the bits it gives alone.
-    `row_frames`: the same lengths on the host, when the caller has them
-    (saves reading frame_lengths back).
+def keeps_row_bits(cfg: ModelConfig) -> bool:
+    """Whether every plain stage of the time-major path lies before its
+    first kernel (generator_tm_prefix), so frame windows can hold them
+    all: true when at most one polyphase product precedes the fused
+    chain (every preset; runtime/voice.py's speculative path needs it)."""
+    start = tm_start_stage(cfg)
+    return fused_suffix_start(cfg, start) <= start + 1
 
-    `fixed_shape`: the mode a CUDA graph captures (runtime/graphs.py).
-    conv_pre and the plain stages run over the whole (B, T) and are
-    masked by the device lengths, so no length is read back to the host
-    and every launch's shape follows x's alone. A row's valid samples are the
-    same function as row by row; on the card they may round differently
-    (cuBLAS and cuDNN pick algorithms by shape)."""
+
+def prefix_factor(cfg: ModelConfig) -> int:
+    """Samples per frame of generator_tm_prefix's output."""
+    start = tm_start_stage(cfg)
+    f = int(np.prod(cfg.upsample_rates[:start])) if start else 1
+    if fused_suffix_start(cfg, start) > start:
+        f *= cfg.upsample_rates[start]
+    return f
+
+
+def prefix_halo(cfg: ModelConfig) -> int:
+    """Frames on either side that one frame of generator_tm_prefix's
+    output depends on: conv_pre's taps, each plain upsample stage's
+    transposed conv and MRF block (its widest resblock), rounded up per
+    stage."""
+    halo = (7 - 1) // 2  # conv_pre
+    start = tm_start_stage(cfg)
+    rate = 1
+    for i in range(min(fused_suffix_start(cfg, start), len(cfg.upsample_rates))):
+        u, k = cfg.upsample_rates[i], cfg.upsample_kernel_sizes[i]
+        halo += -(-k // u) + 1  # the transposed conv, in its input frames
+        rate *= u
+        if i < start:  # an NWC stage's MRF block, in samples of its output
+            mrf = max(
+                sum((kk * d - d) // 2 + ((kk - 1) // 2 if cfg.resblock == "1" else 0) for d in dil)
+                for kk, dil in zip(cfg.resblock_kernel_sizes, cfg.resblock_dilation_sizes)
+            )
+            halo += -(-mrf // rate)
+    return halo
+
+
+def generator_tm_prefix(
+    p: Params, tm: Params, x: torch.Tensor, mask: torch.Tensor, *, cfg: ModelConfig,
+    g: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The time-major path's plain stages before its first kernel, under
+    a mask: conv_pre (+ the speaker's cond), the wide NWC stages and the
+    polyphase product before mrf_fused. x: (B, T, C) latent; mask: (B,
+    T, 1), any 0/1 pattern (a frame window's valid span). Returns the
+    time-major (B, C, T * prefix_factor) input of the first kernel,
+    masked. No host read and no length on the host: a CUDA graph holds
+    it at a frame window's shape (runtime/voice.py)."""
+    start = tm_start_stage(cfg)
+    x = _conv_pre(p, x, g) * mask
+    for i in range(start):
+        u, k = cfg.upsample_rates[i], cfg.upsample_kernel_sizes[i]
+        up = p["ups"][i]
+        y = tnn.conv1d_transpose(tnn.leaky_relu(x, LRELU_SLOPE), up["w"], up["b"], stride=u,
+                                 padding=(k - u) // 2)
+        mask = torch.repeat_interleave(mask, u, dim=1)
+        x = _mrf_nwc(p["resblocks"][i], y * mask, mask, cfg)
+    x = x.transpose(1, 2).contiguous()  # (B, C, T)
+    if fused_suffix_start(cfg, start) > start:
+        u, k = cfg.upsample_rates[start], cfg.upsample_kernel_sizes[start]
+        q0, used, _ = _tm_phase_plan(k, u)
+        x = _tconv_tm(tnn.leaky_relu(x, LRELU_SLOPE), tm["ups"][start], q0, used, tm["ups_b"][start])
+        x = x * torch.repeat_interleave(mask, u, dim=1).transpose(1, 2)
+    return x
+
+
+def generator_tm_suffix(
+    p: Params, tm: Params, x: torch.Tensor, frame_lengths: torch.Tensor, *, cfg: ModelConfig,
+    host_lens: Optional[Sequence[int]] = None,
+) -> torch.Tensor:
+    """The time-major path from generator_tm_prefix's output on: mrf_fused,
+    any further polyphase products with their mrf_fused (row by row at
+    `host_lens`, the prefix's valid samples, when given), then the chain
+    of fused_upsample_mrf launches with conv_post and tanh. x: (B, C, V)
+    masked; frame_lengths: (B,) valid frames on the device. Returns (B,
+    V / prefix_factor * u_total); samples past a row's length are not
+    defined. The kernels mask by the device lengths with one sum order per
+    element, so a row's bits do not depend on V or the batch."""
     ks = tuple(cfg.resblock_kernel_sizes)
     ds = tuple(tuple(d) for d in cfg.resblock_dilation_sizes)
     start = tm_start_stage(cfg)
     n_stages = len(cfg.upsample_rates)
     fuse_from = fused_suffix_start(cfg, start)
-    lens = frame_lengths.to(device=x.device, dtype=torch.int32)
-    if fixed_shape:
-        host_lens = None
-        x = _conv_pre(p, x, g)
-    else:
-        host_lens = list(row_frames) if row_frames is not None else lens.tolist()
-        x = _conv_pre_rows(p, x, g, host_lens)
-    mask = (
-        torch.arange(x.shape[1], device=x.device)[None, :, None] < lens[:, None, None]
-    ).to(x.dtype)
-    x = x * mask
-    for i in range(start):
-        # wide early stages whose MRF tile does not fit shared memory
-        if fixed_shape:
-            x = _nwc_stage_masked(p, i, x, lens, cfg)
-        else:
-            x = _nwc_stage_rows(p, i, x, host_lens, cfg)
-            host_lens = [n * cfg.upsample_rates[i] for n in host_lens]
-        lens = lens * cfg.upsample_rates[i]
-    x = x.transpose(1, 2).contiguous()  # (B, C, T)
+    lens = frame_lengths.to(device=x.device, dtype=torch.int32) * prefix_factor(cfg)
     for i in range(start, fuse_from):
-        u, k = cfg.upsample_rates[i], cfg.upsample_kernel_sizes[i]
-        q0, used, _ = _tm_phase_plan(k, u)
-        x = tnn.leaky_relu(x, LRELU_SLOPE)
-        if fixed_shape:
-            x = _tconv_tm(x, tm["ups"][i], q0, used, tm["ups_b"][i])
-            x = x * _time_mask(lens * u, x.shape[-1], x.dtype)[:, None, :]
-        else:
-            x = _tconv_tm_rows(x, tm["ups"][i], q0, used, tm["ups_b"][i], host_lens)
-            host_lens = [n * u for n in host_lens]
-        lens = lens * u
+        if i > start:  # a plain product between kernels (no preset has one)
+            u, k = cfg.upsample_rates[i], cfg.upsample_kernel_sizes[i]
+            q0, used, _ = _tm_phase_plan(k, u)
+            x = tnn.leaky_relu(x, LRELU_SLOPE)
+            if host_lens is None:
+                x = _tconv_tm(x, tm["ups"][i], q0, used, tm["ups_b"][i])
+                x = x * _time_mask(lens * u, x.shape[-1], x.dtype)[:, None, :]
+            else:
+                x = _tconv_tm_rows(x, tm["ups"][i], q0, used, tm["ups_b"][i], host_lens)
+                host_lens = [n * u for n in host_lens]
+            lens = lens * u
         pw, pb = tm["mrf"][i]
         x = V.mrf_fused(
             x, lens, pw, pb, kernel_sizes=ks, dilation_sizes=ds,
@@ -397,3 +433,59 @@ def generator_tm_apply(
         for tau in range(kp.shape[0])
     )
     return torch.tanh(acc)
+
+
+def generator_tm_apply(
+    p: Params,
+    tm: Params,
+    x: torch.Tensor,
+    frame_lengths: torch.Tensor,
+    *,
+    cfg: ModelConfig,
+    g: Optional[torch.Tensor] = None,
+    row_frames: Optional[Sequence[int]] = None,
+    fixed_shape: bool = False,
+) -> torch.Tensor:
+    """Time-major generator. x: (B, T_frames, C) pre-masked latent;
+    frame_lengths: (B,) valid frames. Returns (B, T*u_total); samples
+    past each row's length are not defined (compare valid samples).
+    conv_pre and the plain stages before the kernels run row by row
+    (_conv_pre_rows, _nwc_stage_rows, _tconv_tm_rows), so each row gives
+    the bits it gives alone.
+    `row_frames`: the same lengths on the host, when the caller has them
+    (saves reading frame_lengths back).
+
+    `fixed_shape`: the mode a CUDA graph captures (runtime/graphs.py):
+    generator_tm_prefix under the length mask, then generator_tm_suffix,
+    so no length is read back to the host and every launch's shape
+    follows x's alone. A row's valid samples are the same function as
+    row by row; on the card they may round differently (cuBLAS and cuDNN
+    pick algorithms by shape). The serving decode runs the prefix in
+    fixed frame windows instead (runtime/voice.py), which keeps a row's
+    bits at any width."""
+    lens = frame_lengths.to(device=x.device, dtype=torch.int32)
+    if fixed_shape:
+        mask = (torch.arange(x.shape[1], device=x.device)[None, :, None]
+                < lens[:, None, None]).to(x.dtype)
+        return generator_tm_suffix(p, tm, generator_tm_prefix(p, tm, x, mask, cfg=cfg, g=g), lens,
+                                   cfg=cfg)
+    start = tm_start_stage(cfg)
+    fuse_from = fused_suffix_start(cfg, start)
+    host_lens = list(row_frames) if row_frames is not None else lens.tolist()
+    x = _conv_pre_rows(p, x, g, host_lens)
+    mask = (
+        torch.arange(x.shape[1], device=x.device)[None, :, None] < lens[:, None, None]
+    ).to(x.dtype)
+    x = x * mask
+    for i in range(start):
+        # wide early stages whose MRF tile does not fit shared memory
+        x = _nwc_stage_rows(p, i, x, host_lens, cfg)
+        host_lens = [n * cfg.upsample_rates[i] for n in host_lens]
+    x = x.transpose(1, 2).contiguous()  # (B, C, T)
+    if fuse_from > start:
+        u, k = cfg.upsample_rates[start], cfg.upsample_kernel_sizes[start]
+        q0, used, _ = _tm_phase_plan(k, u)
+        x = tnn.leaky_relu(x, LRELU_SLOPE)
+        x = _tconv_tm_rows(x, tm["ups"][start], q0, used, tm["ups_b"][start], host_lens)
+        host_lens = [n * u for n in host_lens]
+    return generator_tm_suffix(p, tm, x, lens, cfg=cfg, host_lens=host_lens)

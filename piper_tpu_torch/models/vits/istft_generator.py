@@ -14,10 +14,11 @@ so no CUDA kernel of this port does either. Two modes, as the HiFiGAN
 generator's time-major path has:
 - mb_istft_generator_rows: each row alone at its own valid length, so
   a row's bits do not depend on the batch it rides in (cuDNN picks its
-  algorithm by shape); the decode path's mode;
-- mb_istft_generator_apply: the whole batch under a length mask, the
-  JAX function; the fixed-shape mode a CUDA graph holds (the streamed
-  chunk).
+  algorithm by shape);
+- mb_istft_generator_apply: the whole batch under a mask, the JAX
+  function; the fixed-shape mode a CUDA graph holds (the streamed
+  chunk, and the decode's frame windows: models/vits/model.py
+  synthesizer_frames, runtime/voice.py).
 """
 
 from __future__ import annotations
@@ -103,6 +104,23 @@ def mb_istft_generator_apply(
         sample_mask = torch.repeat_interleave(x_mask, cfg.istft_hop * sub, dim=1)[:, :, 0]
         audio = audio * sample_mask.to(audio.dtype)
     return audio
+
+
+def generator_halo(cfg: ModelConfig) -> int:
+    """Frames on either side that one output frame of
+    mb_istft_generator_apply depends on: conv_pre, each upsample stage's
+    transposed conv and MRF block, conv_post, the iSTFT's window and the
+    PQMF filters (the last three under one frame each at these rates)."""
+    halo = (7 - 1) // 2 + 3  # conv_pre; conv_post, iSTFT, PQMF
+    rate = 1
+    for u, k in zip(cfg.upsample_rates, cfg.upsample_kernel_sizes):
+        rate *= u
+        mrf = max(
+            sum((kk * d - d) // 2 + ((kk - 1) // 2 if cfg.resblock == "1" else 0) for d in dil)
+            for kk, dil in zip(cfg.resblock_kernel_sizes, cfg.resblock_dilation_sizes)
+        )
+        halo += -(-k // u) + 1 + -(-mrf // rate)
+    return halo
 
 
 def mb_istft_generator_rows(

@@ -160,6 +160,39 @@ def synthesizer_flow(
     return z * y_mask
 
 
+def frame_halo(cfg: ModelConfig) -> int:
+    """Frames on either side that one frame of synthesizer_frames' output
+    depends on (the reverse flow's WN stacks and, on VITS2, its windowed
+    attention, then the generator's plain stages), rounded up to 8."""
+    flow = cfg.flow_n_flows * (
+        cfg.flow_n_layers * ((cfg.flow_kernel_size - 1) // 2)
+        + (E.WINDOW_SIZE if cfg.flow_transformer else 0)
+    )
+    gen = MB.generator_halo(cfg) if cfg.vocoder == "mb_istft" else G.prefix_halo(cfg)
+    return -(-(flow + gen) // 8) * 8
+
+
+def synthesizer_frames(
+    params: Params,
+    z_p: torch.Tensor,
+    mask: torch.Tensor,
+    *,
+    cfg: ModelConfig,
+    g: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The decode's frame-level plain stages under a mask (any 0/1
+    pattern: a frame window's valid span): the reverse flow, then
+    HiFiGAN's stages before its first kernel (generator_tm_prefix:
+    time-major (B, C, T * prefix_factor)) or MB-iSTFT's whole generator
+    ((B, T * upsample_factor) float32 audio). Every op is local in time
+    within frame_halo(cfg) frames, and nothing is read to the host."""
+    z = synthesizer_flow(params, z_p, mask, cfg=cfg, g=g)
+    if cfg.vocoder == "mb_istft":
+        return MB.mb_istft_generator_apply(params["dec"], z, mask, cfg=cfg, g=g,
+                                           tables=params.get("dec_mb"))
+    return G.generator_tm_prefix(params["dec"], params["dec_tm"], z, mask, cfg=cfg, g=g)
+
+
 def synthesizer_generate(
     params: Params,
     z: torch.Tensor,

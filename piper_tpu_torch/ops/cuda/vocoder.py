@@ -534,16 +534,34 @@ def mrf_fused(
 mrf_fused.launches = 0
 
 
+# Time tile of the plain versions' products: each product runs over
+# fixed tiles of this many samples (the last one zero-padded), so an
+# output sample's sum order does not depend on the row's width or on the
+# batch, as in the kernels (CPU BLAS picks its blocking by the product's
+# shape). A row then gives the same bits at any padded width.
+PLAIN_TILE = 256
+
+
+def _tiled_product(w2: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
+    """(O, K) float32 weights times (B, K, T) float32 columns ->
+    (B, O, T), over fixed PLAIN_TILE-sample tiles of T."""
+    b, k, t = cols.shape
+    nt = -(-t // PLAIN_TILE)
+    c = F.pad(cols, (0, nt * PLAIN_TILE - t)).reshape(b, k, nt, PLAIN_TILE).permute(0, 2, 1, 3)
+    out = torch.matmul(w2, c)  # (B, nt, O, TILE)
+    return out.permute(0, 2, 1, 3).reshape(b, w2.shape[0], nt * PLAIN_TILE)[..., :t]
+
+
 def _conv_taps(h, w_taps, bias, k: int, d: int) -> torch.Tensor:
     """Dilated "same" conv as ONE tap-packed product (the kernel's and the
     TPU kernel's arithmetic): the k shifted copies of h are stacked and
     contracted over (tap, C_in) in float32, bias added, then rounded to
     h's dtype. h: (B, C_in, T); w_taps: (k, C_in, C_out)."""
     pad = (k * d - d) // 2
-    t = h.shape[-1]
+    b, c, t = h.shape
     hp = F.pad(h.float(), (pad, pad))
     stacked = torch.stack([hp[:, :, kk * d : kk * d + t] for kk in range(k)], 1)
-    acc = torch.einsum("kio,bkit->bot", w_taps.float(), stacked)
+    acc = _tiled_product(w_taps.float().reshape(k * c, -1).t(), stacked.reshape(b, k * c, t))
     return (acc + bias.float().reshape(1, -1, 1)).to(h.dtype)
 
 
@@ -715,8 +733,10 @@ def fused_upsample_mrf_plain(
         q = q0 + qi
         seg = F.pad(x, (max(-q, 0), max(q, 0)))
         segs.append(seg[:, :, max(q, 0) : max(q, 0) + n_in])
-    taps = torch.stack(segs, 1)  # (B, nq, C_in, n_in)
-    y = torch.einsum("pqio,bqis->bosp", wt.float(), taps).reshape(b, c_out, n_out)
+    taps = torch.stack(segs, 1).reshape(b, nq * c_in, n_in)  # (B, nq*C_in, n_in)
+    w2 = wt.float().permute(0, 3, 1, 2).reshape(u * c_out, nq * c_in)  # rows (p, o)
+    y = _tiled_product(w2, taps).reshape(b, u, c_out, n_in).permute(0, 2, 3, 1)
+    y = y.reshape(b, c_out, n_out)
     y = (y + bt.float().reshape(1, -1, 1)).to(dt)
     len_out = lengths.clamp(max=n_out)
     valid = (torch.arange(n_out, device=dev)[None, :] < len_out[:, None])[:, None]
@@ -730,10 +750,9 @@ def fused_upsample_mrf_plain(
             b, u_out * c_out, v
         )
     # conv_post (k taps, C -> 1, no bias) in float32, then tanh
-    g = F.pad(_where(valid, F.leaky_relu(y, 0.01)).float(), ((wpost.shape[0] - 1) // 2,) * 2)
-    acc = sum(
-        torch.einsum("c,bct->bt", wpost[kk, :, 0].float(), g[:, :, kk : kk + n_out])
-        for kk in range(wpost.shape[0])
-    )
+    kp = wpost.shape[0]
+    g = F.pad(_where(valid, F.leaky_relu(y, 0.01)).float(), ((kp - 1) // 2,) * 2)
+    stacked = torch.stack([g[:, :, kk : kk + n_out] for kk in range(kp)], 1)
+    acc = _tiled_product(wpost.float().reshape(1, kp * c_out), stacked.reshape(b, kp * c_out, n_out))[:, 0]
     wave = _where(valid[:, 0], torch.tanh(acc)).to(dt)
     return wave.reshape(b, v, u_out).permute(0, 2, 1).contiguous()

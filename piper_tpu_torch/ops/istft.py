@@ -10,8 +10,8 @@ package's does. The constant tables (window, synthesis filters) are
 made once per device by `make_tables` and passed in, so a CUDA graph
 can hold every op (a capture copies nothing from the host). A batch
 row's bits may follow the batch's shape (cuDNN's and cuFFT's choices),
-so the decode path runs the generator row by row
-(models/vits/istft_generator.py).
+so the decode path runs the generator in frame windows of one shape
+(runtime/voice.py).
 
 pqmf_analysis (training's) is not ported.
 """

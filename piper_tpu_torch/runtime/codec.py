@@ -10,11 +10,16 @@ ffmpeg `-f mulaw`, sox `-t ul`).
 Bit-exact G.711 (segmented companding, bias 0x84, clip 32635) in
 vectorised integer numpy; tests/test_torch_codec.py holds it against
 the JAX package's codec on every int16 value and every code.
+mulaw_encode_torch is the same encoder in integer torch ops, for the
+device side of the serving runtime's mu-law wire (TorchVoice's
+wire_format="mulaw"); tests/test_torch_wire.py holds it against both
+over the whole int16 domain.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 _BIAS = 0x84
 # The encoder is the classic Sun/CCITT 14-bit formulation (as in
@@ -45,6 +50,23 @@ def mulaw_encode(pcm: np.ndarray) -> np.ndarray:
     uval = (seg_c << 4) | ((mag >> (seg_c + 1)) & 0x0F)
     uval = np.where(seg >= 8, 0x7F, uval)
     return ((uval ^ mask) & 0xFF).astype(np.uint8)
+
+
+def mulaw_encode_torch(pcm: torch.Tensor) -> torch.Tensor:
+    """int16 tensor -> uint8 G.711 mu-law codes, on the tensor's device
+    (piper_tpu/runtime/codec.py:58, mulaw_encode_jnp). Elementwise int32
+    ops: the segment is 8 compares, the variable shift an elementwise
+    right shift, so it can run inside a CUDA graph."""
+    x = pcm.to(torch.int32) >> 2
+    mask = torch.where(x < 0, 0x7F, 0xFF)
+    mag = torch.clamp(torch.abs(x), max=_CLIP14) + _BIAS14
+    seg = torch.zeros_like(mag)
+    for ue in _SEG_UEND.tolist():
+        seg = seg + (mag > ue).to(torch.int32)
+    seg_c = torch.clamp(seg, max=7)
+    uval = (seg_c << 4) | ((mag >> (seg_c + 1)) & 0x0F)
+    uval = torch.where(seg >= 8, 0x7F, uval)
+    return ((uval ^ mask) & 0xFF).to(torch.uint8)
 
 
 def mulaw_decode(codes: np.ndarray) -> np.ndarray:

@@ -1,27 +1,50 @@
 """TorchVoice: a loaded voice and its batched synthesis path.
 
-Counterpart of piper_tpu/runtime/voice.py (TpuVoice), kept deliberately
-simpler: no speculative packing, dispatch fusion, estimator cache,
-mu-law wire or long-form windows. A batch of id sequences runs as
+Counterpart of piper_tpu/runtime/voice.py (TpuVoice), without dispatch
+fusion or a mesh. A batch of id sequences runs as
 
   1. Phase A: rows grouped by phoneme bucket (runtime/batching.py) and
      one encode per bucket (text encoder + duration predictor), each one
      CUDA graph replay at (phoneme bucket, ENCODE_ROWS rows), the ids
      uploaded in the narrowest integer type that holds num_symbols;
-  2. Phase B: every bucket's frame counts read to the host in one copy
-     (piper_tpu/runtime/voice.py:1046-1101);
+  2. the decode plan, by one of two paths (TpuVoice.submit,
+     piper_tpu/runtime/voice.py:1074-1101):
+     - exact (the first batch, parity precision): every bucket's frame
+       counts read to the host in one copy (Phase B), which calibrate
+       the frames-per-id estimator;
+     - speculative (fast precision, once the estimator is calibrated or
+       loaded from its cache): each row's frame bucket from the
+       estimate, min(max(int(len * ru) + 4, 1), top bucket), with no
+       read at all; the true frame counts ride back in the header of
+       the packed transfer (pack2), and collect() re-fetches or
+       re-decodes the rows the estimate missed;
   3. each bucket's rows planned into decodes by `decode_grouping`
      (batching.plan_decode_groups: bucketed, uniform or packed), each
-     decode at its frame bucket: prior expansion eagerly, then each
-     row's frame noise, latents and reverse flow at the frame bucket it
-     decodes at alone, as graph replays of flow_graph_rows(bucket) rows,
-     the vocoder eagerly at the decode's longest row, since its row
-     stages take each row's length on the host: the time-major
-     HiFiGAN through the CUDA kernels (ops/cuda/vocoder.py), or the
-     MB-iSTFT generator (models/vits/istft_generator.py), every stage
-     row by row;
-  4. conversion to int16 on the device (fast) or float32 (parity), and
-     one copy of every row's valid samples to the host.
+     decode (_vocode) at its frame bucket: prior expansion, then the
+     frame-level stages (each frame's noise and the latents, the reverse
+     flow, the generator's plain stages: models/vits/model.py
+     synthesizer_frames) in frame windows, then HiFiGAN's kernels
+     (generator_tm_suffix: mrf_fused and fused_upsample_mrf, which mask
+     by the device lengths);
+  4. conversion to int16 on the device (fast) or float32 (parity), the
+     packed transfer on the wire format (int16, or mu-law encoded on the
+     device: `wire_format`), and one copy of it to the host.
+
+Frame windows: a decode's rows are cut into windows of WINDOW_FRAMES
+frames with frame_halo(cfg) frames of context on either side, masked by
+the row's valid span, and every window of every decode of the voice
+runs in one CUDA graph shape, window_rows(cfg, dtype) windows per
+replay (padded with copies of the first). A window's output depends on
+its own inputs alone, so a row's frames get the same bits whatever its
+frame bucket, its decode's width or the batch around it: cuBLAS and
+cuDNN pick their algorithms by shape, and at the row's own bucket the
+flow, conv_pre, the NWC stages and the polyphase product moved rows at
+larger buckets on the card (ROADMAP fault 17, PERF.md). That is what
+lets the speculative path decode at an estimated bucket and still give
+the exact path's bits, as the JAX package promises
+(tests/test_runtime.py:224-237). The kernels keep a row's bits at any
+width (one sum order per element, masks by device lengths); their plain
+versions on the CPU run fixed-tile products for the same reason.
 
 The batch is split as TpuVoice splits it: submit() enqueues the device
 work and starts the copy to the host (pinned memory, non_blocking, an
@@ -32,11 +55,12 @@ synthesize_batch and synthesize_stream_raw go through it. With `timer`
 set (runtime/profiling.StageTimer), submit() times its phases.
 
 Threads: a server calls one voice from many threads. The generator of
-unseeded requests' seeds is guarded by a lock, and the graphs by theirs
-(runtime/graphs.py). TF32 is switched off once, when a voice is built
-(tf32_off): fast precision computes its float32 parts without it at no
-cost (PERF.md), so both precisions run under the same process-wide
-flags and no call switches them.
+unseeded requests' seeds is guarded by a lock, the graphs by theirs
+(runtime/graphs.py), the estimators by one lock (TpuVoice's
+_ratio_lock) and the path counters by another. TF32 is switched off
+once, when a voice is built (tf32_off): fast precision computes its
+float32 parts without it at no cost (PERF.md), so both precisions run
+under the same process-wide flags and no call switches them.
 
 Noise: every utterance draws JAX's own random streams (ops/prng.py)
 from JAX's key, fold_in(PRNGKey(seed), crc32(ids)) (TpuVoice._utt_keys,
@@ -47,17 +71,19 @@ JAX package's noise, and its audio depends neither on the batch it
 rides in nor on the frame count it is decoded at (the two properties of
 voice.py:262-331). The host computes each row's key (one threefry) and
 uploads the keys with the ids; the noise is drawn on the device, inside
-the encode graph and the flow graphs. A row's bits are its solo bits in
-either precision: the encodes run at one row count (ENCODE_ROWS), the
-flow at the row's own frame bucket at one row count per bucket
-(flow_graph_rows), and conv_pre and the generator's plain stages (all
-of MB-iSTFT's) run row by row (PERF.md).
+the encode graph and the frame-window graph (each window at its frames'
+absolute indices).
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import hashlib
+import json
+import logging
+import math
+import os
 import threading
 import time
 import zlib
@@ -66,6 +92,7 @@ from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..config import InferenceDefaults, ModelConfig, SynthesisConfig, VoiceConfig
 from ..models.vits import generator as G
@@ -79,36 +106,124 @@ from ..weights.bridge import params_from_jax
 from ..weights.native import load_native
 from ..weights.onnx_loader import load_onnx_voice
 from ..weights.torch_loader import load_torch_checkpoint
-from . import batching
+from . import batching, codec
 from .graphs import GraphCache
 from .wav import audio_float_to_int16, int16_to_float
+
+_LOGGER = logging.getLogger(__name__)
 
 # Rows of every encode: a phoneme bucket's rows run in slices of this
 # many, padded with copies of the slice's first row, so a row's bits
 # never depend on how many rows share its bucket (cuBLAS and cuDNN pick
 # their algorithms by shape; PERF.md). One encode graph per bucket.
 ENCODE_ROWS = 16
-# Rows and frames of the flow graphs, for the same reason: a row's
-# reverse flow runs at its own frame bucket, in graphs of one row count
-# per bucket (flow_graph_rows), padded with copies of their first row.
-# Over a decode's rows at the decode's bucket a trained voice's float32
-# row and a perturbed flow's bf16 row moved (PERF.md).
-FLOW_MAX_ROWS = 16
-FLOW_FRAMES = 8192  # rows x frame bucket of a bf16 flow graph
+# Frame windows of the decode: centre frames of a window, and the frames
+# of one window graph in bf16 (half that in float32), for the same
+# reason; 8192 bf16 frames was the flow graphs' budget before windows
+# (a graph of them cost at most about twice one row's on the card).
+WINDOW_FRAMES = 256
+WINDOW_BUDGET = 8192
+# Packed-transfer size granularity in samples (TpuVoice._PACK_QUANTUM,
+# voice.py:115): a transfer's size is the body rounded up to this, or
+# to a power of two of at least it (pack_total="pow2").
+PACK_QUANTUM = 1 << 16
+WIRE_FORMATS = ("int16", "mulaw")
+PACK_TOTALS = ("quantum", "pow2")
 
 
-def flow_graph_rows(bucket: int, dtype: torch.dtype) -> int:
-    """Rows of the flow graph at frame bucket `bucket`: the largest power
-    of two up to FLOW_MAX_ROWS whose rows times `bucket` stay within
-    FLOW_FRAMES in bf16, half that in float32 (at least 1). Measured on
-    the card by tools/flow_rows.py: such a graph costs at most about
-    twice one row's, and each row of it at least half as much as alone,
-    where a float32 row costs about twice a bf16 row (PERF.md)."""
-    frames = FLOW_FRAMES * 2 // dtype.itemsize
-    n = 1
-    while 2 * n <= FLOW_MAX_ROWS and 2 * n * bucket <= frames:
-        n *= 2
-    return n
+def window_rows(cfg: ModelConfig, dtype: torch.dtype) -> int:
+    """Windows per frame-window graph: as many WINDOW_FRAMES + 2 * halo
+    frame windows as fit WINDOW_BUDGET frames in bf16, half in float32
+    (at least 1). One count per voice and dtype, so every window runs at
+    one shape."""
+    span = WINDOW_FRAMES + 2 * M.frame_halo(cfg)
+    return max(1, (WINDOW_BUDGET * 2 // dtype.itemsize) // span)
+
+
+def estimator_dir(base: Optional[Union[str, Path]] = None) -> Path:
+    """Where the port keeps its estimator snapshots: `base`, else
+    $PIPER_TPU_CACHE, else ~/.cache, then piper_tpu_torch/estimators
+    (the JAX package keeps its own under its compilation cache,
+    piper_tpu/runtime/cache.py)."""
+    if base is None:
+        base = os.environ.get("PIPER_TPU_CACHE") or os.path.join(os.path.expanduser("~"), ".cache")
+    return Path(base) / "piper_tpu_torch" / "estimators"
+
+
+def round_total(body: int, pack_total: str) -> int:
+    """A transfer body in samples rounded up to PACK_QUANTUM, or to the
+    next power of two of at least PACK_QUANTUM (TpuVoice's pack_total)."""
+    q = PACK_QUANTUM
+    body = max(q, -(-body // q) * q)
+    if pack_total == "pow2":
+        p = q
+        while p < body:
+            p <<= 1
+        body = p
+    return body
+
+
+def _rows_to_buffer(audio_list: Sequence[torch.Tensor], starts: torch.Tensor, length: int):
+    """(length,) buffer of every decode group's rows, row r's whole padded
+    width written at starts[r] in row order, later rows over earlier
+    ones (TpuVoice._rows_to_buffer, voice.py:390-418: one
+    dynamic_update_slice per row). Computed as the last writer of each
+    position: per group, the last row starting at or before it (the
+    group's starts are sorted), if its width reaches it. No host read."""
+    dev = starts.device
+    pad = max(a.shape[1] for a in audio_list)
+    pos = torch.arange(length, device=dev)
+    owner = torch.full((length,), -1, dtype=torch.long, device=dev)
+    r0 = 0
+    for a in audio_list:
+        n, w = a.shape
+        s = starts[r0 : r0 + n].contiguous()
+        j = torch.searchsorted(s, pos, right=True) - 1
+        jc = j.clamp(min=0)
+        owner = torch.where((j >= 0) & (pos < s[jc] + w), jc + r0, owner)
+        r0 += n
+    rows = torch.cat([F.pad(a, (0, pad - a.shape[1])) for a in audio_list])
+    o = owner.clamp(min=0)
+    vals = rows[o, (pos - starts[o]).clamp(0, pad - 1)]
+    return torch.where(owner >= 0, vals, torch.zeros((), dtype=vals.dtype, device=dev))
+
+
+def pack2(audio_list: Sequence[torch.Tensor], ylen_list: Sequence[torch.Tensor], a0: int,
+          total: int, upsample: int, mulaw: bool = False) -> torch.Tensor:
+    """The speculative path's self-describing transfer (TpuVoice's
+    _pack2_body, pack2_fn and pack2_mulaw_fn, voice.py:430-479): each
+    row's valid samples, min(frames * upsample, its decode's width), at
+    offsets a0 + the exclusive sum of the valid counts before it,
+    computed on the device from the true frame counts `ylen_list`.
+    int16 wire: a header of (frames & 0x7FFF, frames >> 15) int16 slots
+    per row, zero-padded to a0 slots. mu-law wire: 4 bytes per row,
+    frames little-endian in bytes 0-2, byte 3 zero, padded to a0 bytes,
+    then the body mu-law encoded (a0 and total count bytes). A fixed
+    shape for (rows, a0, total): nothing is read back to the host."""
+    ylens = torch.cat(list(ylen_list)).to(torch.long)
+    caps = torch.cat([torch.full((a.shape[0],), a.shape[1], dtype=torch.long, device=ylens.device)
+                      for a in audio_list])
+    valid = torch.minimum(ylens * upsample, caps)
+    starts = (torch.cumsum(valid, 0) - valid).clamp(0, total - a0)
+    body = _rows_to_buffer([a.to(torch.int16) for a in audio_list], starts, total - a0)
+    if mulaw:
+        hdr = torch.stack([ylens & 0xFF, (ylens >> 8) & 0xFF, (ylens >> 16) & 0xFF,
+                           torch.zeros_like(ylens)], 1).reshape(-1)
+        hdr = F.pad(hdr, (0, a0 - hdr.numel())).to(torch.uint8)
+        return torch.cat([hdr, codec.mulaw_encode_torch(body)])
+    hdr = torch.stack([ylens & 0x7FFF, ylens >> 15], 1).reshape(-1)
+    hdr = F.pad(hdr, (0, a0 - hdr.numel())).to(torch.int16)
+    return torch.cat([hdr, body])
+
+
+def read_header(flat: np.ndarray, rows: int) -> np.ndarray:
+    """The true frame counts of a pack2 transfer on the host
+    (TpuVoice._collect_speculative, voice.py:1479-1488)."""
+    if flat.dtype == np.uint8:
+        hdr = flat[: 4 * rows].astype(np.int64).reshape(rows, 4)
+        return hdr[:, 0] | (hdr[:, 1] << 8) | (hdr[:, 2] << 16)
+    hdr = flat[: 2 * rows].astype(np.int64)
+    return (hdr[1::2] << 15) | (hdr[0::2] & 0x7FFF)
 
 
 @dataclasses.dataclass
@@ -227,6 +342,10 @@ class TorchVoice:
         device: Union[None, str, torch.device] = None,
         seed: Optional[int] = None,
         decode_grouping: str = "bucketed",
+        wire_format: str = "int16",
+        pack_total: str = "quantum",
+        estimator_cache: bool = False,
+        cache_dir: Optional[Union[str, Path]] = None,
     ):
         """`params`: the voice's parameter tree in the JAX package's
         layouts (numpy leaves, as weights/native.load_native returns it).
@@ -246,16 +365,32 @@ class TorchVoice:
               length-sorted rows.
         Every grouping plans the rows of one encode group, so a batch
         runs at least one decode per phoneme bucket. A row's audio is
-        the same under any of them."""
+        the same under any of them.
+
+        `wire_format` (TpuVoice's, voice.py:139-148): the packed
+        device->host transfer in "int16" (2 bytes a sample) or "mulaw"
+        (G.711 encoded on the device, 1 byte a sample, lossy; fast
+        precision only: parity transfers float32). collect() returns
+        float32 either way.
+        `pack_total`: "quantum" rounds a transfer up to PACK_QUANTUM
+        samples, "pow2" to a power of two (fewer distinct sizes under
+        concurrent serving, up to twice the bytes).
+        `estimator_cache`: keep the calibrated frames-per-id estimator
+        and transfer margin in a snapshot under estimator_dir(cache_dir),
+        keyed by the weights and every knob that shapes the speculative
+        path, so a fresh process starts on the speculative path."""
         if precision not in ("parity", "fast"):
             raise ValueError(f"precision: {precision!r}")
         if decode_grouping not in batching.DECODE_GROUPINGS:
             raise ValueError(f"decode_grouping: {decode_grouping!r}")
+        if pack_total not in PACK_TOTALS:
+            raise ValueError(f"pack_total: {pack_total!r}")
+        self.precision = precision
+        self._check_wire(wire_format)
         self.device = resolve_device(device)
         tf32_off()
         self.config = config
         self.model_cfg = model_cfg
-        self.precision = precision
         self.dtype = torch.float32 if precision == "parity" else torch.bfloat16
         self.params = params_from_jax(params, model_cfg, self.device, self.dtype)
         # the vocoder's derived tables: HiFiGAN's time-major weights for
@@ -268,6 +403,8 @@ class TorchVoice:
         self.phoneme_buckets = batching.DEFAULT_PHONEME_BUCKETS
         self.frame_buckets = batching.DEFAULT_FRAME_BUCKETS
         self.decode_grouping = decode_grouping
+        self.wire_format = wire_format
+        self.pack_total = pack_total
         # Narrowest host->device type of the phoneme ids (TpuVoice's
         # _ids_wire_dtype, voice.py:243): embedding indices are
         # non-negative, so 8 unsigned bits cover a 256-symbol table.
@@ -275,11 +412,35 @@ class TorchVoice:
         self._ids_wire_dtype = (
             torch.uint8 if ns <= 256 else torch.int16 if ns < 32768 else torch.int32
         )
+        self._halo = M.frame_halo(model_cfg)
+        self._win_rows = window_rows(model_cfg, self.dtype)
+        self._prefix_factor = (model_cfg.upsample_factor if model_cfg.vocoder == "mb_istft"
+                               else G.prefix_factor(model_cfg))
+        # frame windows hold every plain stage only when no plain product
+        # lies between two kernels (every preset); otherwise rows could
+        # move with their bucket, and no batch goes speculative
+        self.speculative_ok = model_cfg.vocoder == "mb_istft" or G.keeps_row_bits(model_cfg)
         self.graphs = GraphCache(self.device)
         self._rng = np.random.default_rng(seed)  # seeds of unseeded rows
         self._rng_lock = threading.Lock()
         self.batcher = None  # server/batcher.CoalescingBatcher, when serving
         self.timer = None  # runtime/profiling.StageTimer: spans of submit()
+        # frames-per-id estimator of the speculative buckets, (mean,
+        # upper); None until an exact batch calibrates it. The transfer's
+        # headroom over its estimated body (TpuVoice, voice.py:503-518).
+        self._ratio: Optional[Tuple[float, float]] = None
+        self._spec_margin = 1.12
+        self._spec_calibrated = False
+        self._spec_need_hist: List[float] = []
+        self._ratio_lock = threading.Lock()
+        # batches by path and rows the speculative path missed
+        self.path_counts = {"exact": 0, "speculative": 0, "refetched": 0, "redecoded": 0,
+                            "longform": 0}
+        self._counts_lock = threading.Lock()
+        self._estimator_cache_path: Optional[Path] = None
+        if estimator_cache:
+            self._estimator_cache_path = self._estimator_cache_file(params, cache_dir)
+            self._load_estimators()
 
     # ------------------------------------------------------------------
     # Loading
@@ -412,8 +573,9 @@ class TorchVoice:
         row_seeds: Optional[Sequence[Optional[int]]] = None,
     ) -> dict:
         """Enqueue a batch's device work and the copy of its samples to
-        the host; returns a handle for collect(). The only wait is for the
-        frame counts: one copy for the whole batch (Phase B).
+        the host; returns a handle for collect(). On the exact path the
+        one wait is for the frame counts, one copy for the whole batch
+        (Phase B); on the speculative path submit() waits for nothing.
 
         `row_seeds` gives each row its own seed (a None row draws one),
         overriding syn.seed: the batcher coalesces differently seeded
@@ -428,21 +590,207 @@ class TorchVoice:
             row_seeds = [syn.seed] * len(ids_list)
         seeds = self.resolve_seeds(row_seeds)
         keys = [utterance_seed(s, ids) for s, ids in zip(seeds, ids_list)]
-        event = None
         with torch.inference_mode():
-            flat, rows, decodes = self._synthesize(ids_list, keys, syn)
-            with self._span("copy"):
-                if self.device.type == "cuda":
-                    # into pinned memory without waiting; collect() waits on
-                    # the event, from whichever thread it runs on
-                    host = torch.empty(flat.shape, dtype=flat.dtype, pin_memory=True)
-                    host.copy_(flat, non_blocking=True)
-                    event = torch.cuda.Event()
-                    event.record(torch.cuda.current_stream(self.device))
-                else:
-                    host = flat
-        return {"host": host, "event": event, "rows": rows, "n": len(ids_list), "t0": t0,
-                "decodes": decodes}
+            # Phase A: every phoneme bucket's encode, no wait
+            groups = []
+            for bucket, indices in batching.group_by_bucket(
+                [len(ids) for ids in ids_list], self.phoneme_buckets
+            ):
+                rkeys = [keys[i] for i in indices]
+                enc, frames = self._encode([ids_list[i] for i in indices], rkeys, bucket, syn)
+                groups.append((indices, rkeys, enc, frames))
+            if groups and self._speculative():
+                handle = self._dispatch_speculative(groups, ids_list, syn)
+            else:
+                handle = self._dispatch_exact(groups, ids_list, syn)
+        handle.update(n=len(ids_list), t0=t0)
+        return handle
+
+    def _speculative(self) -> bool:
+        """Whether a batch takes the speculative path: fast precision,
+        a voice whose rows keep their bits at any bucket, and a
+        calibrated estimator (voice.py:1079-1083)."""
+        if self.precision != "fast" or not self.speculative_ok:
+            return False
+        with self._ratio_lock:
+            return self._ratio is not None
+
+    def _count(self, key: str, n: int = 1) -> None:
+        with self._counts_lock:
+            self.path_counts[key] += n
+
+    def _to_host(self, flat: torch.Tensor):
+        """Start the one copy of a batch's transfer to the host: into
+        pinned memory without waiting, an event after it (collect() waits
+        on the event, from whichever thread it runs on)."""
+        with self._span("copy"):
+            if self.device.type != "cuda":
+                return flat, None
+            host = torch.empty(flat.shape, dtype=flat.dtype, pin_memory=True)
+            host.copy_(flat, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(self.device))
+            return host, event
+
+    def _dispatch_exact(self, groups, ids_list, syn: SynthesisConfig) -> dict:
+        """Phase B and the decodes at the true frame buckets: all frame
+        counts in one copy, which also calibrate the estimator."""
+        self._count("exact")
+        counts = self._read_frames([g[3] for g in groups])
+        ratios = [f / len(ids_list[i]) for (indices, *_), frames in zip(groups, counts)
+                  for i, f in zip(indices, frames) if len(ids_list[i]) > 0]
+        if ratios:
+            self._update_ratio(ratios)
+        u = self.model_cfg.upsample_factor
+        pieces: List[torch.Tensor] = []
+        rows: List[Tuple[int, int, int]] = []
+        pos = decodes = 0
+        for (indices, rkeys, enc, _), frames in zip(groups, counts):
+            for fbucket, members in self._plan_decode_groups(frames):
+                gframes = [frames[j] for j in members]
+                audio = self._decode_members(enc, rkeys, members, fbucket, gframes, syn)
+                decodes += 1
+                for row, j in enumerate(members):
+                    n_samples = gframes[row] * u
+                    pieces.append(audio[row, :n_samples])
+                    rows.append((indices[j], pos, n_samples))
+                    pos += n_samples
+        flat = torch.cat(pieces) if pieces else torch.zeros(0, device=self.device)
+        if self.precision == "fast" and pieces:
+            # the transfer's size (TpuVoice's pack_fn total, voice.py:1180-1185)
+            flat = F.pad(flat, (0, round_total(pos, self.pack_total) - pos))
+            if self.wire_format == "mulaw":
+                flat = codec.mulaw_encode_torch(flat)
+        host, event = self._to_host(flat)
+        return {"host": host, "event": event, "rows": rows, "decodes": decodes}
+
+    def _decode_members(self, enc, rkeys, members, fbucket: int, frames: Optional[Sequence[int]],
+                        syn: SynthesisConfig) -> torch.Tensor:
+        """Decode rows `members` of an encode group at `fbucket`: with
+        `frames` (their true counts, known on the host) each row's frame
+        windows up to its length and the kernels at the longest row (the
+        exact path, re-decodes, the long form), without them every
+        window of the bucket and the kernels at its width (the
+        speculative path). Returns int16 audio (fast) or float32."""
+        n = len(members)
+        sel = self._rows_index(members, enc.m_p.shape[0])
+        if sel is not None:
+            enc = M.EncodeResult(*(t.index_select(0, sel) for t in enc))
+        keys_t, scale_t = self._noise_inputs([rkeys[j] for j in members], syn)
+        W = WINDOW_FRAMES
+        if frames is None:
+            windows, width = [-(-fbucket // W)] * n, fbucket
+        else:
+            windows, width = [max(-(-f // W), 1) for f in frames], max(max(frames), 1)
+        with self._span("decode"):
+            audio = self._vocode(enc, fbucket, keys_t, scale_t, self._speaker(syn, n), windows, width)
+            if self.precision == "fast":
+                # device-side int16 (voice.py:379-387): tanh output is in [-1, 1]
+                return torch.round(audio.float().clamp(-1.0, 1.0) * 32767.0).to(torch.int16)
+            return audio.float()
+
+    def _rows_index(self, members: Sequence[int], rows: int) -> Optional[torch.Tensor]:
+        """`members` as a device index (pinned, copied without waiting),
+        None when they are all `rows` rows in order."""
+        if list(members) == list(range(rows)):
+            return None
+        sel = torch.tensor(members, pin_memory=self.device.type == "cuda")
+        return sel.to(self.device, non_blocking=True)
+
+    def _frames_step(self, m_p, logs_p, mask, keys, offsets, noise_scale, sid):
+        """The frame-window graph's function over window_rows windows of
+        WINDOW_FRAMES + 2 * halo frames: each frame's noise from its row's
+        key at its absolute index (offsets: each window's first frame,
+        negative in a row's first window), the latents, then
+        synthesizer_frames under the window's mask. Returns the windows'
+        centre frames."""
+        idx = (offsets[:, None] + torch.arange(m_p.shape[1], device=m_p.device)).clamp(min=0)
+        noise = prng.normal(prng.fold_in(prng.fold_in(keys, 1)[:, None, :], idx), (m_p.shape[2],))
+        z_p = M.sample_latents(m_p, logs_p, mask, noise, noise_scale)
+        g = M.speaker_embedding(self.params, self.model_cfg, sid)
+        out = M.synthesizer_frames(self.params, z_p, mask, cfg=self.model_cfg, g=g)
+        f, h = self._prefix_factor, self._halo
+        return (out[..., h * f : (h + WINDOW_FRAMES) * f],)
+
+    def _vocode(self, enc, fbucket: int, keys_t, scale_t, sid, windows: Sequence[int],
+                width: int) -> torch.Tensor:
+        """Audio (rows, width * upsample) of encoded rows at `fbucket`:
+        prior expansion, the rows' frame windows (_frames), then
+        HiFiGAN's kernels at `width` frames. keys_t (rows, 2) and scale_t
+        (1,) on the device; sid (rows,) or None."""
+        m_p, logs_p, y_mask = M.expand_prior(enc, fbucket)
+        x = self._frames(m_p, logs_p, y_mask, keys_t, scale_t, sid, windows)
+        f = self._prefix_factor
+        if self.model_cfg.vocoder == "mb_istft":
+            return x[:, : width * f]
+        lens = (y_mask[..., 0] > 0).sum(dim=1).to(torch.int32)
+        return G.generator_tm_suffix(self.params["dec"], self.params["dec_tm"],
+                                     x[:, :, : width * f].contiguous(), lens, cfg=self.model_cfg)
+
+    def _frames(self, m_p, logs_p, y_mask, keys_t, scale_t, sid, windows: Sequence[int]):
+        """The frame-level stages of rows (m_p, logs_p (rows, T, C), y_mask
+        (rows, T, 1)): the first windows[r] frame windows of row r through
+        the frame-window graph, window_rows windows a replay (padded with
+        copies of the first), their centres stitched. Returns HiFiGAN's
+        time-major (rows, C, nw * WINDOW_FRAMES * prefix_factor) or
+        MB-iSTFT's (rows, nw * WINDOW_FRAMES * upsample) audio, nw =
+        max(windows)."""
+        W, h = WINDOW_FRAMES, self._halo
+        span, k = W + 2 * h, self._win_rows
+        b, t = m_p.shape[:2]
+        nw = max(windows)
+        right = max(nw * W + h - t, 0)
+
+        def cut(x):  # (rows, T, ch) -> (rows * nw, span, ch)
+            xp = F.pad(x, (0, 0, h, right))[:, : nw * W + 2 * h]
+            return xp.unfold(1, span, W).transpose(2, 3).reshape(b * nw, span, x.shape[2])
+
+        sel = [r * nw + w for r in range(b) for w in range(windows[r])]
+        order = []
+        for lo in range(0, len(sel), k):
+            part = sel[lo : lo + k]
+            order += part + part[:1] * (k - len(part))
+        idx = torch.tensor(sel + order, dtype=torch.long,
+                           pin_memory=self.device.type == "cuda").to(self.device, non_blocking=True)
+        sel_d, order_d = idx[: len(sel)], idx[len(sel) :]
+        offsets = (order_d % nw) * W - h
+        windows_in = [x.index_select(0, order_d) for x in (cut(m_p), cut(logs_p), cut(y_mask))]
+        keys_w = keys_t.index_select(0, order_d // nw)
+        sid_w = None if sid is None else sid[:1].repeat(k)
+        key = ("frames", k, span, self.dtype, sid is not None)
+        outs = []
+        for lo in range(0, len(order), k):
+            part = slice(lo, lo + k)
+            out = self.graphs.run(key, self._frames_step, (
+                *(x[part] for x in windows_in), keys_w[part], offsets[part], scale_t, sid_w))[0]
+            outs.append(out[: min(k, len(sel) - lo)])
+        centres = torch.cat(outs)
+        buf = centres.new_zeros((b * nw,) + centres.shape[1:]).index_copy_(0, sel_d, centres)
+        if buf.dim() == 2:  # MB-iSTFT's audio
+            return buf.reshape(b, -1)
+        c, wf = buf.shape[1:]
+        return buf.reshape(b, nw, c, wf).permute(0, 2, 1, 3).reshape(b, c, nw * wf)
+
+    def set_wire_format(self, wire_format: str) -> None:
+        """Switch the transfer's wire format on a live voice
+        (TpuVoice.set_wire_format, voice.py:961)."""
+        self._check_wire(wire_format)
+        self.wire_format = wire_format
+
+    def _check_wire(self, wire_format: str) -> None:
+        if wire_format not in WIRE_FORMATS:
+            raise ValueError(f"wire_format: {wire_format!r}")
+        if wire_format == "mulaw" and self.precision == "parity":
+            raise ValueError(
+                "wire_format='mulaw' needs the int16 device path "
+                "(precision='fast'); parity mode transfers float32"
+            )
+
+    @property
+    def spec_margin(self) -> float:
+        """The speculative transfer's headroom over its estimated body."""
+        with self._ratio_lock:
+            return self._spec_margin
 
     def collect(
         self, handle: dict, *, stats: Optional[SynthesisStats] = None
@@ -450,15 +798,20 @@ class TorchVoice:
         """Wait for a submit()ted batch; returns float32 waveforms."""
         if handle["event"] is not None:
             handle["event"].synchronize()
-        host = handle["host"].numpy()
-        if host.dtype == np.int16:
-            host = int16_to_float(host)
-        results = [np.zeros(0, np.float32)] * handle["n"]
-        for idx, start, n in handle["rows"]:
-            results[idx] = host[start : start + n]
+        results: List[np.ndarray] = [np.zeros(0, np.float32)] * handle["n"]
+        if "spec" in handle:
+            self._collect_speculative(handle, results)
+        else:
+            host = handle["host"].numpy()
+            if host.dtype == np.uint8:
+                host = codec.mulaw_decode(host)
+            if host.dtype == np.int16:
+                host = int16_to_float(host)
+            for idx, start, n in handle["rows"]:
+                results[idx] = host[start : start + n]
         if stats is not None:
             stats.infer_seconds += time.perf_counter() - handle["t0"]
-            stats.audio_seconds += sum(n for _, _, n in handle["rows"]) / self.config.sample_rate
+            stats.audio_seconds += sum(len(r) for r in results) / self.config.sample_rate
         return results
 
     def _scales(self, syn: SynthesisConfig) -> Tuple[float, float, float]:
@@ -512,14 +865,6 @@ class TorchVoice:
         noise = frame_noise_rows(keys, m_p.shape[1], m_p.shape[2])
         return (M.sample_latents(m_p, logs_p, y_mask, noise, noise_scale),)
 
-    def _flow_step(self, m_p, logs_p, y_mask, keys, noise_scale, sid):
-        """The flow graph's function: the latents, then the reverse flow,
-        over a graph's rows at their frame bucket (the generator after it
-        runs eagerly: its row stages take host lengths)."""
-        (z_p,) = self._latents_step(m_p, logs_p, y_mask, keys, noise_scale)
-        g = M.speaker_embedding(self.params, self.model_cfg, sid)
-        return (M.synthesizer_flow(self.params, z_p, y_mask, cfg=self.model_cfg, g=g),)
-
     def _graph(self, kind: str, fn, inputs, sid=None):
         """fn over rows at one frame bucket: a graph replay at (kind,
         frame bucket, rows) on the frame-bucket ladder, eager past it (a
@@ -530,44 +875,6 @@ class TorchVoice:
                         for x in inputs))[0]
         key = (kind, m_p.shape[1], m_p.shape[0], self.dtype, sid is not None)
         return self.graphs.run(key, fn, inputs)[0]
-
-    def _flow(self, m_p, logs_p, y_mask, keys, noise_scale, sid) -> torch.Tensor:
-        """Latents and reverse flow of rows at one frame bucket."""
-        return self._graph("flow", self._flow_step, (m_p, logs_p, y_mask, keys, noise_scale, sid),
-                           sid)
-
-    def _flow_rows(self, m_p, logs_p, y_mask, keys, noise_scale, sid,
-                   frames: Sequence[int]) -> torch.Tensor:
-        """A decode's latents and reverse flow (keys: the rows' (rows, 2)
-        key table, noise_scale a (1,) tensor, both on the device): each
-        row at the frame bucket it decodes at alone (alone at its own
-        frame count past the ladder), the rows of one bucket in graphs of
-        flow_graph_rows(bucket) rows, each padded with copies of its
-        first row, so a row's flow has one shape alone and in any batch.
-        Over a decode's rows at the decode's bucket, cuBLAS and cuDNN
-        pick their algorithms by the rows and the bucket: a trained
-        voice's float32 row moved against the same row alone, and a bf16
-        row of a flow with `post` perturbed (PERF.md)."""
-        z = torch.zeros_like(m_p)
-        top = self.frame_buckets[-1]
-        by_bucket: dict = {}
-        for row, f in enumerate(frames):
-            fb = batching.pick_bucket(f, self.frame_buckets) if f <= top else f
-            by_bucket.setdefault(fb, []).append(row)
-        for fb, rows in by_bucket.items():
-            n = flow_graph_rows(fb, self.dtype) if fb <= top else 1
-            for lo in range(0, len(rows), n):
-                part = rows[lo : lo + n]
-                sel = part + part[:1] * (n - len(part))
-                out = self._flow(
-                    *(torch.cat([x[r : r + 1, :fb] for r in sel]) for x in (m_p, logs_p, y_mask)),
-                    torch.cat([keys[r : r + 1] for r in sel]),
-                    noise_scale,
-                    None if sid is None else sid[:1].repeat(n),
-                )
-                for k, r in enumerate(part):
-                    z[r, :fb] = out[k]
-        return z
 
     def _encode(self, rows_ids, keys, bucket: int, syn: SynthesisConfig):
         """Encode rows padded to `bucket`, each with its own duration
@@ -642,62 +949,242 @@ class TorchVoice:
                               (m_p, logs_p, y_mask, *self._noise_inputs(keys, syn)))
         return z_p[:, :num_frames], y_mask[:, :num_frames]
 
-    def _synthesize(
-        self, ids_list, keys, syn: SynthesisConfig
-    ) -> Tuple[torch.Tensor, List[Tuple[int, int, int]], int]:
-        """Device part of submit: returns one flat tensor of every row's
-        valid samples, (index, start, n) per row, and the decodes run."""
+    # ------------------------------------------------------------------
+    # The speculative path (TpuVoice, voice.py:1217-1612)
+    # ------------------------------------------------------------------
+
+    def _update_ratio(self, ratios: Sequence[float]) -> None:
+        """Track (mean, upper) frames per id (TpuVoice._update_ratio,
+        voice.py:1217-1244): mean sizes the transfer, upper picks the
+        decode buckets. Both are piecewise constant with hysteresis:
+        upper jumps at once on a near miss (a miss costs a re-decode) and
+        drops only when twice too large; mean moves only when more than
+        12.5% off. Seeded at (mean * 1.05, max * 1.25)."""
+        obs_mean = float(np.mean(ratios))
+        obs_max = float(np.max(ratios))
+        with self._ratio_lock:
+            prev = self._ratio
+            if self._ratio is None:
+                self._ratio = (obs_mean * 1.05, obs_max * 1.25)
+            else:
+                rm, ru = self._ratio
+                if not (0.875 * rm <= obs_mean * 1.05 <= 1.125 * rm):
+                    rm = obs_mean * 1.05
+                if obs_max * 1.1 > ru or obs_max * 2.0 < ru:
+                    ru = obs_max * 1.25
+                self._ratio = (rm, ru)
+            if self._ratio != prev:
+                self._save_estimators_locked()
+
+    def _update_margin(self, need: float, short: int) -> None:
+        """Calibrate the transfer's margin from a batch's realized need
+        (its valid body over its estimate) and its shortfall rows
+        (voice.py:1555-1604): past a shortfall the margin jumps to
+        max(need, margin) * 1.05 (cap 1.5); until calibrated it snaps to
+        the largest need of 4 batches * 1.05 (floor 0.25, never above
+        itself); then it tightens to the largest need of 16 * 1.04 when
+        that is 0.02 below it, keeping the last 8."""
+        with self._ratio_lock:
+            m = self._spec_margin
+            if short:
+                if need * 1.05 > 1.5:
+                    _LOGGER.info("speculative transfer margin cap (1.5) binding: realized need "
+                                 "%.2fx estimate; %d rows re-fetched", need, short)
+                self._spec_margin = min(max(need * 1.05, m * 1.05), 1.5)
+                self._spec_calibrated = True
+                self._spec_need_hist.clear()
+            elif not self._spec_calibrated:
+                self._spec_need_hist.append(need)
+                if len(self._spec_need_hist) >= 4:
+                    self._spec_margin = min(max(max(self._spec_need_hist) * 1.05, 0.25), m)
+                    self._spec_calibrated = True
+                    del self._spec_need_hist[:]
+            else:
+                self._spec_need_hist.append(need)
+                if len(self._spec_need_hist) >= 16:
+                    tight = max(self._spec_need_hist) * 1.04
+                    if tight < m - 0.02:
+                        self._spec_margin = max(tight, 0.25)
+                    del self._spec_need_hist[:-8]
+            if self._spec_margin != m:
+                self._save_estimators_locked()
+
+    def _estimator_cache_file(self, params, cache_dir) -> Path:
+        """The snapshot's path, keyed as TpuVoice keys it
+        (voice.py:1248-1286): every parameter's path and shape, a strided
+        sample of the embedding, the model config, and the buckets,
+        grouping, wire and precision."""
+        h = hashlib.md5()
+
+        def walk(path, node):
+            if isinstance(node, dict):
+                for k in sorted(node, key=str):
+                    walk(f"{path}/{k}", node[k])
+            elif isinstance(node, (list, tuple)):
+                for i, v in enumerate(node):
+                    walk(f"{path}/{i}", v)
+            elif node is not None:
+                h.update(path.encode())
+                h.update(str(tuple(np.shape(node))).encode())
+
+        walk("", params)
+        emb = np.asarray(params["enc_p"]["emb"]["weight"], np.float32)
+        h.update(emb[:: max(1, emb.shape[0] // 8)].tobytes())
+        h.update(repr(self.model_cfg).encode())
+        h.update(repr((tuple(self.phoneme_buckets), tuple(self.frame_buckets),
+                       self.decode_grouping, self.wire_format, self.precision)).encode())
+        return estimator_dir(cache_dir) / (h.hexdigest() + ".json")
+
+    def _load_estimators(self) -> None:
+        """Start from a snapshot when there is a valid one: finite values,
+        rm, ru > 0, margin in [0.25, 1.5]; a bad one is deleted."""
+        path = self._estimator_cache_path
+        if path is None or not path.exists():
+            return
+        try:
+            snap = json.loads(path.read_text())
+            rm, ru = float(snap["ratio"][0]), float(snap["ratio"][1])
+            margin = float(snap["margin"])
+            if not all(math.isfinite(v) for v in (rm, ru, margin)):
+                raise ValueError("non-finite estimator value")
+            if not (rm > 0 and ru > 0 and 0.25 <= margin <= 1.5):
+                raise ValueError("estimator value out of range")
+        except (OSError, ValueError, KeyError, TypeError, IndexError) as e:
+            _LOGGER.info("ignoring the estimator snapshot %s: %s", path, e)
+            path.unlink(missing_ok=True)
+            return
+        with self._ratio_lock:
+            self._ratio = (rm, ru)
+            self._spec_margin = margin
+            self._spec_calibrated = True
+
+    def _save_estimators_locked(self) -> None:
+        """Write the snapshot atomically (the caller holds _ratio_lock).
+        The values are piecewise constant, so this runs on a change, not
+        on every batch."""
+        path = self._estimator_cache_path
+        if path is None or self._ratio is None:
+            return
+        try:
+            path.parent.mkdir(parents=True, exist_ok=True)
+            tmp = path.with_suffix(f".tmp{os.getpid()}")
+            tmp.write_text(json.dumps({"ratio": list(self._ratio), "margin": self._spec_margin}))
+            os.replace(tmp, path)
+        except OSError as e:
+            _LOGGER.info("estimator snapshot not written: %s", e)
+
+    def _dispatch_speculative(self, groups, ids_list, syn: SynthesisConfig) -> dict:
+        """Decode at the estimated frame buckets and emit one
+        self-describing transfer (pack2), with no host read
+        (TpuVoice._dispatch_speculative, voice.py:1337-1457)."""
+        self._count("speculative")
+        with self._ratio_lock:
+            rm, ru = self._ratio
+            margin = self._spec_margin
+        # quantized at use (voice.py:1346-1351): groupings stay put while
+        # the estimate drifts underneath
+        rm = math.ceil(rm * 8.0) / 8.0
+        ru = math.ceil(ru * 8.0) / 8.0
         u = self.model_cfg.upsample_factor
-        # Phase A: every phoneme bucket's encode, no wait
-        groups = []
-        for bucket, indices in batching.group_by_bucket(
-            [len(ids) for ids in ids_list], self.phoneme_buckets
-        ):
-            rkeys = [keys[i] for i in indices]
-            enc, frames = self._encode([ids_list[i] for i in indices], rkeys, bucket, syn)
-            groups.append((indices, rkeys, enc, frames))
-        # Phase B: all frame counts in one copy
-        counts = self._read_frames([g[3] for g in groups])
-        pieces: List[torch.Tensor] = []
-        rows: List[Tuple[int, int, int]] = []
-        pos = decodes = 0
-        for (indices, rkeys, enc, _), frames in zip(groups, counts):
-            for fbucket, members in self._plan_decode_groups(frames):
-                n = len(members)
-                if members != list(range(len(indices))):
-                    sel = torch.tensor(members, pin_memory=self.device.type == "cuda")
-                    sel = sel.to(self.device, non_blocking=True)
-                    genc = M.EncodeResult(*(t.index_select(0, sel) for t in enc))
-                else:
-                    genc = enc
-                gframes = [frames[j] for j in members]
-                noise_in = self._noise_inputs([rkeys[j] for j in members], syn)
-                with self._span("decode"):
-                    m_p, logs_p, y_mask = M.expand_prior(genc, fbucket)
-                    sid = self._speaker(syn, n)
-                    z = self._flow_rows(m_p, logs_p, y_mask, *noise_in, sid, gframes)
-                    g = M.speaker_embedding(self.params, self.model_cfg, sid)
-                    # the eager generator runs at the longest row, not at
-                    # the frame bucket: its kernels' work follows the width
-                    t = max(max(gframes), 1)
-                    audio = M.synthesizer_generate(
-                        self.params, z[:, :t], y_mask[:, :t], cfg=self.model_cfg, g=g,
-                        frames=gframes,
-                    )
-                    if self.precision == "fast":
-                        # device-side int16 (voice.py:379-387): tanh output is in [-1, 1]
-                        audio = torch.round(audio.float().clamp(-1.0, 1.0) * 32767.0).to(torch.int16)
-                    else:
-                        audio = audio.float()
-                decodes += 1
-                for row, j in enumerate(members):
-                    n_samples = gframes[row] * u
-                    pieces.append(audio[row, :n_samples])
-                    rows.append((indices[j], pos, n_samples))
-                    pos += n_samples
-        if not pieces:
-            return torch.zeros(0, device=self.device), rows, decodes
-        return torch.cat(pieces), rows, decodes
+        max_fb = self.frame_buckets[-1]
+        plan = []  # (encode group, bucket, rows of the group)
+        # per row: (result index, cap samples, decode, row in decode,
+        #           encode group, row in encode group, id count)
+        rows: List[Tuple[int, int, int, int, int, int, int]] = []
+        est_total = 0
+        for eg_no, (indices, *_rest) in enumerate(groups):
+            lens = [len(ids_list[i]) for i in indices]
+            est = [min(max(int(n * ru) + 4, 1), max_fb) for n in lens]
+            for fbucket, members in self._plan_decode_groups(est):
+                cap = fbucket * u
+                for row_i, row in enumerate(members):
+                    rows.append((indices[row], cap, len(plan), row_i, eg_no, row, lens[row]))
+                    est_total += min(int(lens[row] * rm * u) + 4 * u, cap)
+                plan.append((eg_no, fbucket, members))
+        mulaw = self.wire_format == "mulaw"
+        # header: 2 int16 slots a row, or 4 bytes a row on mu-law (where
+        # a0 and total count bytes, one a sample)
+        a0 = -(-(4 if mulaw else 2) * len(rows) // 128) * 128
+        total = a0 + round_total(int(est_total * margin), self.pack_total)
+        audio, ylens = [], []
+        for eg_no, fbucket, members in plan:
+            _, rkeys, enc, frames = groups[eg_no]
+            audio.append(self._decode_members(enc, rkeys, members, fbucket, None, syn))
+            sel = self._rows_index(members, frames.shape[0])
+            ylens.append(frames if sel is None else frames.index_select(0, sel))
+        with self._span("pack"):
+            packed = pack2(audio, ylens, a0, total, u, mulaw)
+        host, event = self._to_host(packed)
+        return {"host": host, "event": event, "decodes": len(plan), "spec": {
+            "a0": a0, "total": total, "est_body": est_total, "rows": rows, "audio": audio,
+            "groups": groups, "syn": syn}}
+
+    def _seg_to_float(self, seg: np.ndarray) -> np.ndarray:
+        """One segment of the transfer -> float32 (decodes the wire)."""
+        if seg.dtype == np.uint8:
+            seg = codec.mulaw_decode(seg)
+        return int16_to_float(seg)
+
+    def _int16_through_wire(self, seg: np.ndarray) -> np.ndarray:
+        """int16 samples fetched outside the transfer (a re-fetch or a
+        re-decode) -> float32 through the wire's codec, so the row's
+        bits equal a packed row's (voice.py:1467-1476)."""
+        if self.wire_format == "mulaw":
+            seg = codec.mulaw_decode(codec.mulaw_encode(seg))
+        return int16_to_float(seg)
+
+    def _collect_speculative(self, handle: dict, results: List[np.ndarray]) -> None:
+        """Read the rows that fit from the transfer, re-fetch the margin's
+        shortfalls, re-decode the bucket overflows (one decode per
+        encode group and bucket) and rows past the ladder (alone at their
+        own frame count), then calibrate the margin and the estimator
+        (TpuVoice._collect_speculative, voice.py:1478-1612)."""
+        spec = handle["spec"]
+        flat = handle["host"].numpy()
+        rows = spec["rows"]
+        u = self.model_cfg.upsample_factor
+        true_frames = read_header(flat, len(rows))
+        total, out = spec["total"], spec["a0"]
+        refetch, redecode = [], []
+        for i, (res_idx, cap, *_r) in enumerate(rows):
+            n_true = int(true_frames[i]) * u
+            valid = min(n_true, cap)
+            if n_true <= cap and out + valid <= total:
+                results[res_idx] = self._seg_to_float(flat[out : out + valid])
+            elif n_true <= cap:
+                refetch.append((i, n_true))
+            else:
+                redecode.append((i, int(true_frames[i])))
+            out += valid
+        for i, n_true in refetch:
+            res_idx, _cap, g_no, row_i, *_r = rows[i]
+            seg = spec["audio"][g_no][row_i, :n_true].cpu().numpy()
+            results[res_idx] = self._int16_through_wire(seg)
+        self._count("refetched", len(refetch))
+        max_fb = self.frame_buckets[-1]
+        by_group: dict = {}
+        with torch.inference_mode():
+            for i, frames in redecode:
+                fbucket = batching.pick_bucket(frames, self.frame_buckets) if frames <= max_fb else frames
+                by_group.setdefault((rows[i][4], fbucket), []).append((i, frames))
+            for (eg_no, fbucket), items in by_group.items():
+                _, rkeys, enc, _f = spec["groups"][eg_no]
+                frames = [f for _, f in items]
+                audio = self._decode_members(enc, rkeys, [rows[i][5] for i, _ in items], fbucket,
+                                             frames, spec["syn"])
+                for j, (i, f) in enumerate(items):
+                    results[rows[i][0]] = self._int16_through_wire(audio[j, : f * u].cpu().numpy())
+            handle["decodes"] += len(by_group)
+        long = sum(f > max_fb for _, f in redecode)
+        self._count("redecoded", len(redecode) - long)
+        self._count("longform", long)
+        if spec["est_body"] > 0:
+            # `out` ends at a0 + the sum of the valid counts: what a
+            # perfectly sized transfer would have carried
+            self._update_margin((out - spec["a0"]) / spec["est_body"], len(refetch))
+        ratios = [float(true_frames[i]) / r[6] for i, r in enumerate(rows) if r[6] > 0]
+        if ratios:
+            self._update_ratio(ratios)
 
     def synthesize_batch(
         self,
@@ -825,13 +1312,13 @@ class TorchVoice:
         """Build the kernels (on CUDA), capture the encode graph of every
         phoneme bucket, a stream's latents graph of every frame bucket and
         the streaming chunk's graph (runtime/graphs.py).
-        With `full`, also the flow graph of every frame bucket (at
-        flow_graph_rows(bucket) rows, the only count it runs), and run
-        one whole batch (encode, decode, copy to the host) per
-        power-of-two row count up to the largest batch size, at this
-        voice's device and dtype: the allocator's blocks, cuDNN's and
-        cuBLAS's first calls and both kernels' first launches in the
-        eager generator, so no request pays for them."""
+        With `full`, also the frame-window graph (every decode's one
+        shape), and run one whole batch (encode, decode, copy to the
+        host) per power-of-two row count up to the largest batch size,
+        at this voice's device and dtype: the allocator's blocks, cuDNN's
+        and cuBLAS's first calls and both kernels' first launches, so no
+        request pays for them. The batches run on the exact path and
+        leave the estimators as they were."""
         from .streaming import StreamingDecoder
 
         if self.device.type == "cuda":
@@ -858,18 +1345,31 @@ class TorchVoice:
         if not full:
             return
         with torch.inference_mode():
-            for fb in self.frame_buckets:
-                b = flow_graph_rows(fb, self.dtype)
-                z = torch.zeros((b, fb, c), dtype=self.dtype, device=self.device)
-                noise_in = self._noise_inputs([0] * b, syn)
-                for _ in range(2):
-                    self._flow(z, z, z[..., :1], *noise_in, self._speaker(syn, b))
+            k = self._win_rows
+            z = torch.zeros((k, WINDOW_FRAMES + 2 * self._halo, c), dtype=self.dtype,
+                            device=self.device)
+            keys, scale = self._noise_inputs([0] * k, syn)
+            offsets = torch.zeros((k,), dtype=torch.long, device=self.device)
+            key = ("frames", k, z.shape[1], self.dtype, self.speaker_id(syn) is not None)
+            for _ in range(2):
+                self.graphs.run(key, self._frames_step,
+                                (z, z, z[..., :1], keys, offsets, scale, self._speaker(syn, k)))
+        with self._ratio_lock:
+            saved = (self._ratio, self._spec_margin, self._spec_calibrated,
+                     list(self._spec_need_hist), self._estimator_cache_path)
+            # the exact path, and no snapshot of the warm-up's rows
+            self._ratio = self._estimator_cache_path = None
         rows = 1
-        while True:
-            self.collect(self.submit([[1, 0] + [tok, 0] * 30 + [2]] * rows, syn=syn))
-            if rows >= b_max:
-                break
-            rows = min(2 * rows, b_max)
+        try:
+            while True:
+                self.collect(self.submit([[1, 0] + [tok, 0] * 30 + [2]] * rows, syn=syn))
+                if rows >= b_max:
+                    break
+                rows = min(2 * rows, b_max)
+        finally:
+            with self._ratio_lock:
+                (self._ratio, self._spec_margin, self._spec_calibrated,
+                 self._spec_need_hist[:], self._estimator_cache_path) = saved
 
 
 def random_voice_config(model_cfg: ModelConfig) -> VoiceConfig:

@@ -16,7 +16,10 @@ Endpoints beyond the reference:
                  the rate in `X-Sample-Rate`
   GET  /health - liveness and voice metadata
   GET  /metrics - serving counters (requests, shed deadlines, streams,
-                 the coalescing batcher's batch and utterance totals)
+                 the coalescing batcher's batch and utterance totals),
+                 the speculative transfer's margin (`spec_margin`) and
+                 the voice's batches by path with the rows the
+                 speculative path missed (`paths`)
 
 Built on the standard library's ThreadingHTTPServer: one thread per
 connection, all launching onto the card's current stream. With the
@@ -143,6 +146,11 @@ def make_handler(
                     body = dict(metrics)
                 body["uptime_s"] = round(time.monotonic() - body.pop("started_monotonic"), 3)
                 body["batcher"] = dict(voice.batcher.stats) if voice.batcher is not None else None
+                # the speculative transfer's live margin, and batches by
+                # path with the rows it missed (runtime/voice.py)
+                body["spec_margin"] = round(voice.spec_margin, 4)
+                with voice._counts_lock:
+                    body["paths"] = dict(voice.path_counts)
                 self._send(200, "application/json", json.dumps(body).encode())
             elif parsed.path == "/health":
                 body = {
@@ -298,8 +306,8 @@ def main(argv=None):
         help="Warm the serving path before requests pay for it (TorchVoice.warmup): "
         "'encode' builds the kernels and captures the CUDA graphs of each phoneme "
         "bucket's encode (at its one row count, 16) and of the streamed chunk; "
-        "'full' also captures the flow graph of every frame bucket (at its one "
-        "row count), and synthesises one "
+        "'full' also captures the frame-window graph (every decode's one shape), "
+        "and synthesises one "
         "batch per power-of-two row count; 'background' (default) binds the port "
         "at once and runs 'full' on a daemon thread",
     )
@@ -323,6 +331,8 @@ def main(argv=None):
     # server's default, piper_tpu/server/http_server.py:367-368)
     if args.decode_grouping is None:
         args.decode_grouping = "uniform"
+    if args.pack_total is None:
+        args.pack_total = "pow2"
     voice = load_voice(args)
     sizes = tuple(int(s) for s in args.warmup_batch_sizes.split(",") if s)
     if args.batch_window_ms > 0:

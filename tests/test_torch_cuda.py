@@ -381,9 +381,9 @@ def test_coalesced_rows_equal_solo_rows_on_card(dev, quality, precision):
 def test_graph_replay_equals_eager_on_card(medium, precision):
     """Each graph kind, replayed with new inputs, gives the bits of its
     function run eagerly on the same inputs at the same shape: the
-    encode graph (two phoneme buckets, 3 rows padded to 4), the flow
-    graph of each decode, and the streamed chunk's graph (a full window
-    and a short one)."""
+    encode graph (two phoneme buckets, 3 rows padded to 4), the
+    frame-window graph of each decode, and the streamed chunk's graph (a
+    full window and a short one)."""
     from piper_tpu_torch.config import SynthesisConfig
     from piper_tpu_torch.runtime.streaming import StreamingDecoder
 
@@ -405,7 +405,7 @@ def test_graph_replay_equals_eager_on_card(medium, precision):
     for _ in range(2):
         list(StreamingDecoder(voice).stream(z_p, 120))
     kinds = {key[0] for key, *_ in calls}
-    assert kinds == {"encode", "flow", "chunk"}, kinds
+    assert kinds == {"encode", "frames", "chunk"}, kinds
     seen, replays = set(), []
     for call in calls:
         if call[0] in seen:
@@ -616,9 +616,9 @@ def test_coalesced_variant_rows_equal_solo_rows_on_card(dev, variant, precision)
     each row's solo audio bit for bit, on the medium VITS2 voice (speaker
     1: the flow's attention and the speaker-conditioned encoder) and the
     medium MB-iSTFT voice (its generator row by row at each row's
-    length), in both precisions. The flow runs each row at its own frame
-    bucket in graphs of flow_graph_rows(bucket) rows: over a decode's
-    rows a bf16 row moved by one step (tools/row_invariance.py --voice).
+    length), in both precisions. The flow and the generator's plain
+    stages run in frame windows of one graph shape: over a decode's rows
+    a bf16 row moved by one step (tools/row_invariance.py --voice).
     VITS2 also counts one mrf_fused and two fused_upsample_mrf launches
     per decode, MB-iSTFT none."""
     import numpy as np
@@ -648,8 +648,7 @@ def test_coalesced_rows_of_a_perturbed_vits_flow_equal_solo_rows_on_card(dev, pr
     weights make the flow the identity, which hid that one bf16 row moved
     by one step in a flow over a decode's rows): 16 rows in one submit
     give each row's solo audio bit for bit, in both precisions, since the
-    flow runs each row at its own frame bucket in graphs of one row
-    count per bucket."""
+    flow runs in frame windows of one graph shape."""
     import numpy as np
 
     from piper_tpu_torch.config import SynthesisConfig
@@ -661,3 +660,79 @@ def test_coalesced_rows_of_a_perturbed_vits_flow_equal_solo_rows_on_card(dev, pr
     for i, (row, seed) in enumerate(zip(rows, seeds)):
         alone = voice.synthesize_ids_batch([row], syn=SynthesisConfig(seed=seed))[0]
         np.testing.assert_array_equal(together[i], alone, err_msg=f"row {i}")
+
+
+def _speculative_at(voice, row, fbucket, syn, prev):
+    """Submit `row` alone with the estimator set so that its estimated
+    frame bucket is `fbucket` (prev: the bucket below it); returns the
+    handle and the audio."""
+    target = (prev + fbucket) // 2
+    ru = (target - 4) / len(row)
+    voice._ratio = (ru, ru)
+    handle = voice.submit([row], syn=syn)
+    assert handle.get("spec") is not None, "no speculative path: every decode reads its frame counts"
+    return handle, voice.collect(handle)[0]
+
+
+@pytest.mark.parametrize("variant", ["vits", "vits2", "mb_istft"])
+def test_rows_keep_their_bits_at_every_larger_frame_bucket_on_card(dev, variant):
+    """ROADMAP fault 17: a row decoded at any frame bucket above its own
+    (the speculative path's estimate, no frame count on the host) gives
+    the bits of its exact decode, fast precision, on the medium VITS
+    voice with its flows' post perturbed, the medium VITS2 voice (speaker
+    1) and the medium MB-iSTFT voice. On the card cuBLAS and cuDNN pick
+    their algorithms by shape, and at the row's own bucket the reverse
+    flow, conv_pre, the wide NWC stages and the polyphase product moved
+    rows at larger buckets (tools/row_invariance.py --buckets); the
+    decode now runs them in frame windows of one shape."""
+    import numpy as np
+
+    from piper_tpu_torch.config import SynthesisConfig
+
+    voice = _variant_voice(variant, "fast")
+    syn = SynthesisConfig(seed=5, speaker_id=1 if variant == "vits2" else None)
+    ladder = [b for b in voice.frame_buckets if b <= 2192]
+    for n in (30, 90):
+        row = _long_ids(n)
+        exact = voice.synthesize_ids_batch([row], syn=syn)[0]
+        frames = len(exact) // voice.model_cfg.upsample_factor
+        own = min(b for b in ladder if b >= frames)
+        tried = 0
+        for prev, fbucket in zip(ladder, ladder[1:]):
+            if prev < own:
+                continue
+            handle, got = _speculative_at(voice, row, fbucket, syn, prev)
+            assert handle["spec"]["rows"][0][1] == fbucket * voice.model_cfg.upsample_factor
+            np.testing.assert_array_equal(got, exact, err_msg=f"{frames} frames at bucket {fbucket}")
+            tried += 1
+        assert tried >= 3
+
+
+@pytest.mark.parametrize("wire", ["int16", "mulaw"])
+def test_speculative_batch_equals_exact_batch_on_card(dev, wire):
+    """16 rows of several phoneme buckets on the medium VITS voice (post
+    perturbed), fast precision: the first batch takes the exact path and
+    calibrates the estimator, the same rows again take the speculative
+    path with no frames_wait span and give the exact batch's audio bit
+    for bit, with one mrf_fused and two fused_upsample_mrf launches per
+    decode and re-decode, on either wire."""
+    import numpy as np
+
+    from piper_tpu_torch.config import SynthesisConfig
+    from piper_tpu_torch.runtime.profiling import StageTimer
+
+    voice = _variant_voice("vits", "fast")
+    voice.set_wire_format(wire)
+    rows = [_long_ids(n) for n in (5, 23, 40, 61, 90, 120, 14, 77, 33, 8, 101, 47, 66, 19, 130, 55)]
+    seeds = list(range(16))
+    exact = voice.collect(voice.submit(rows, syn=SynthesisConfig(), row_seeds=seeds))
+    voice.timer = StageTimer()
+    V.mrf_fused.launches = V.fused_upsample_mrf.launches = 0
+    handle = voice.submit(rows, syn=SynthesisConfig(), row_seeds=seeds)
+    spec = voice.collect(handle)
+    assert "spec" in handle and voice.path_counts["speculative"] == 1
+    assert voice.timer.counts.get("frames_wait", 0) == 0
+    assert (V.mrf_fused.launches, V.fused_upsample_mrf.launches) == (handle["decodes"],
+                                                                   2 * handle["decodes"])
+    for i, (a, b) in enumerate(zip(exact, spec)):
+        np.testing.assert_array_equal(a, b, err_msg=f"row {i}")

@@ -193,49 +193,54 @@ def test_encodes_run_at_one_row_count(params, monkeypatch):
             assert int(f1[0]) == int(frames[i])
 
 
-@pytest.mark.parametrize("dtype,frames", [(torch.bfloat16, RV.FLOW_FRAMES),
-                                          (torch.float32, RV.FLOW_FRAMES // 2)])
+@pytest.mark.parametrize("dtype,frames", [(torch.bfloat16, RV.WINDOW_BUDGET),
+                                          (torch.float32, RV.WINDOW_BUDGET // 2)])
 @pytest.mark.parametrize("bucket", batching.DEFAULT_FRAME_BUCKETS)
 def test_flow_graph_rows_fill_the_frame_budget(bucket, dtype, frames, monkeypatch):
-    """A flow graph holds the most rows, a power of two up to
-    FLOW_MAX_ROWS, whose rows times the bucket stay within FLOW_FRAMES
-    in bf16 and half that in float32 (one row when even one exceeds it);
-    a budget of 0 is a graph per row."""
-    n = RV.flow_graph_rows(bucket, dtype)
-    assert n & (n - 1) == 0 and 1 <= n <= RV.FLOW_MAX_ROWS
-    assert n == 1 or n * bucket <= frames
-    assert 2 * n > RV.FLOW_MAX_ROWS or 2 * n * bucket > frames
-    monkeypatch.setattr(RV, "FLOW_FRAMES", 0)
-    assert RV.flow_graph_rows(bucket, dtype) == 1
+    """The frame-window graph (reverse flow and the generator's plain
+    stages) holds the most windows of WINDOW_FRAMES + 2 * halo frames
+    that stay within WINDOW_BUDGET frames in bf16 and half that in
+    float32 (one window when even one exceeds it), whatever the frame
+    bucket: a row at `bucket` runs ceil(bucket / WINDOW_FRAMES) windows
+    of that one shape. A budget of 0 is a graph per window."""
+    span = RV.WINDOW_FRAMES + 2 * M.frame_halo(CFG)
+    n = RV.window_rows(CFG, dtype)
+    assert n >= 1 and (n == 1 or n * span <= frames) and (n + 1) * span > frames
+    assert -(-bucket // RV.WINDOW_FRAMES) * RV.WINDOW_FRAMES >= bucket
+    monkeypatch.setattr(RV, "WINDOW_BUDGET", 0)
+    assert RV.window_rows(CFG, dtype) == 1
 
 
 @pytest.mark.parametrize("precision", ["parity", "fast"])
 def test_flow_runs_each_row_at_its_own_bucket(params, precision, monkeypatch):
-    """Every voice runs a row's reverse flow at the frame bucket it
-    decodes at alone, in graphs of flow_graph_rows(bucket) rows padded
-    with copies of their first row, in both precisions: one uniform
-    decode of rows in several buckets makes one graph shape per own
-    bucket, and a row decoded alone has its graph's shape and bits."""
+    """Every voice runs a row's reverse flow and the generator's plain
+    stages in frame windows, in both precisions: one uniform decode of
+    rows in several frame buckets runs only the one window-graph shape
+    (window_rows windows of WINDOW_FRAMES + 2 * halo frames), a row's
+    windows up to its own length, and a row decoded alone runs the same
+    shape and gives the same bits."""
     voice = _voice(params, precision, FRAME_BUCKETS, decode_grouping="uniform")
-    monkeypatch.setattr(RV, "FLOW_FRAMES", 128)  # 8 or 4 rows at bucket 16, fewer above
+    span = RV.WINDOW_FRAMES + 2 * M.frame_halo(CFG)
     shapes = []
-    flow = voice._flow
+    step = voice._frames_step
 
-    def spy(m_p, *inputs):  # the flow graph's inputs: the latents' and sid
+    def spy(m_p, *inputs):  # the window graph's inputs: the latents' and sid
         shapes.append(tuple(m_p.shape[:2]))
-        return flow(m_p, *inputs)
+        return step(m_p, *inputs)
 
-    monkeypatch.setattr(voice, "_flow", spy)
+    monkeypatch.setattr(voice, "_frames_step", spy)
     rows = _rows()
     together = voice.collect(voice.submit(rows, row_seeds=list(range(len(rows)))))
     frames = [len(a) // CFG.upsample_factor for a in together]
     own = [batching.pick_bucket(f, FRAME_BUCKETS) for f in frames]
     assert len(set(own)) >= 2, frames
-    assert sorted(set(shapes)) == sorted({(RV.flow_graph_rows(b, voice.dtype), b) for b in own})
+    k = RV.window_rows(CFG, voice.dtype)
+    n_windows = sum(-(-f // RV.WINDOW_FRAMES) for f in frames)
+    assert set(shapes) == {(k, span)} and len(shapes) >= -(-n_windows // k)
     for i in (0, len(rows) - 1):
         shapes.clear()
         alone = voice.synthesize_ids_batch([rows[i]], syn=SynthesisConfig(seed=i))[0]
-        assert shapes == [(RV.flow_graph_rows(own[i], voice.dtype), own[i])]
+        assert shapes == [(k, span)] * -(-(-(-frames[i] // RV.WINDOW_FRAMES)) // k)
         np.testing.assert_array_equal(together[i], alone)
 
 

@@ -477,8 +477,9 @@ def test_http_stream_chunked(served):
 
 
 def test_http_health_and_metrics_keys_match_jax(served):
-    """/health has the JAX server's keys; /metrics has them less
-    spec_margin (the speculative path is not ported yet)."""
+    """/health has the JAX server's keys; /metrics has them, spec_margin
+    (the speculative transfer's margin) among them, and the port's
+    batches by path (`paths`)."""
     from piper_tpu.server.http_server import serve as jax_serve
 
     cfg = served.voice.config
@@ -501,7 +502,10 @@ def test_http_health_and_metrics_keys_match_jax(served):
         stub.batcher.close()
     assert bodies["torch"]["/health"].keys() == bodies["jax"]["/health"].keys()
     assert bodies["torch"]["/health"]["sample_rate"] == 22050
-    assert bodies["torch"]["/metrics"].keys() == bodies["jax"]["/metrics"].keys() - {"spec_margin"}
+    assert bodies["torch"]["/metrics"].keys() == bodies["jax"]["/metrics"].keys() | {"paths"}
+    assert 0.25 <= bodies["torch"]["/metrics"]["spec_margin"] <= 1.5  # JAX's bounds
+    assert set(bodies["torch"]["/metrics"]["paths"]) == {"exact", "speculative", "refetched",
+                                                         "redecoded", "longform"}
     assert bodies["torch"]["/metrics"]["batcher"].keys() == bodies["jax"]["/metrics"]["batcher"].keys()
 
 
@@ -645,7 +649,7 @@ def test_voice_build_turns_tf32_off_for_every_thread(params, monkeypatch):
     serial = [voice.synthesize_ids_batch([r], syn=SynthesisConfig(seed=i))[0]
               for i, r in enumerate(reqs)]
     seen = []
-    vocode = M.synthesizer_generate
+    vocode = voice._vocode  # a decode: frame windows, then the generator's kernels
 
     def observing_vocode(*a, **k):
         before = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
@@ -653,7 +657,7 @@ def test_voice_build_turns_tf32_off_for_every_thread(params, monkeypatch):
         seen.append((before, (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)))
         return out
 
-    monkeypatch.setattr(M, "synthesizer_generate", observing_vocode)
+    monkeypatch.setattr(voice, "_vocode", observing_vocode)
     got = _in_threads(8, lambda i: voice.synthesize_ids_batch([reqs[i]], syn=SynthesisConfig(seed=i))[0])
     assert len(seen) == 8 and all(s == ((False, False), (False, False)) for s in seen), seen
     for g, s in zip(got, serial):

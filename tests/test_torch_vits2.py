@@ -35,6 +35,7 @@ from piper_tpu.models.vits import flow as JF
 from piper_tpu_torch.config import SynthesisConfig
 from piper_tpu_torch.models.vits import encoder as TE
 from piper_tpu_torch.models.vits import flow as TF
+from piper_tpu_torch.models.vits import model as TM
 from piper_tpu_torch.runtime import streaming as S
 from piper_tpu_torch.runtime import voice as RV
 from piper_tpu_torch.weights.bridge import params_from_jax
@@ -321,31 +322,32 @@ def test_bridge_refuses_a_tree_without_what_the_config_runs(tree, missing):
 
 @pytest.mark.parametrize("precision", ["parity", "fast"])
 def test_vits2_flow_runs_at_own_bucket_in_fixed_row_graphs(npz, precision, monkeypatch):
-    """A VITS2 voice's reverse flow (both precisions) runs each row at the
-    frame bucket it decodes at alone, in graphs of flow_graph_rows(bucket)
-    rows padded with copies, so a row's flow has one shape alone and in
-    any batch, whatever the decode grouping: here rows of two frame
-    buckets decoded as one uniform group."""
+    """A VITS2 voice's reverse flow, attention included (both
+    precisions), runs in frame windows of one graph shape (window_rows
+    windows of WINDOW_FRAMES + 2 * frame_halo frames, the halo covering
+    the flow's attention), so a row's flow has one shape alone and in any
+    batch, whatever the decode grouping: here rows of two frame buckets
+    decoded as one uniform group."""
     voice = RV.TorchVoice.load(npz, device="cpu", precision=precision, seed=0,
                                decode_grouping="uniform")
     voice.frame_buckets = [16, 32, 64, 128, 256, 512]
-    monkeypatch.setattr(RV, "FLOW_FRAMES", 128)  # bf16: 8 rows at bucket 16 down to 1 at 128
+    span = RV.WINDOW_FRAMES + 2 * TM.frame_halo(voice.model_cfg)
+    k = RV.window_rows(voice.model_cfg, voice.dtype)
     shapes = []
-    flow = voice._flow
+    step = voice._frames_step
 
-    def spy(m_p, *inputs):  # the flow graph's inputs: the latents' and sid
+    def spy(m_p, *inputs):  # the window graph's inputs: the latents' and sid
         shapes.append(tuple(m_p.shape[:2]))
-        return flow(m_p, *inputs)
+        return step(m_p, *inputs)
 
-    voice._flow = spy
+    voice._frames_step = spy
     rows = _rows()
     together = voice.collect(voice.submit(rows, row_seeds=list(range(4))))
     frames = [len(a) // voice.model_cfg.upsample_factor for a in together]
     own = sorted({min(b for b in voice.frame_buckets if b >= f) for f in frames})
     assert len(own) >= 2, frames  # the rows span buckets
-    assert sorted(set(shapes)) == sorted((RV.flow_graph_rows(b, voice.dtype), b) for b in own)
+    assert set(shapes) == {(k, span)}
     shapes.clear()
     alone = voice.synthesize_ids_batch([rows[0]], syn=SynthesisConfig(seed=0))[0]
-    first = min(b for b in voice.frame_buckets if b >= frames[0])
-    assert shapes == [(RV.flow_graph_rows(first, voice.dtype), first)]
+    assert shapes == [(k, span)]
     np.testing.assert_array_equal(together[0], alone)
