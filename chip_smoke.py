@@ -118,12 +118,25 @@ Phases (any failure makes the exit code non-zero):
      audio, with 1 + 2 launches per decode and re-decode; the estimator
      snapshot (written outside the checkout under $PIPER_TPU_CACHE, set
      to the smoke's temporary directory) loaded by a fresh process whose
-     first batch goes speculative, and a corrupt one deleted and ignored.
+     first batch goes speculative, and a corrupt one deleted and ignored;
+ 10. dispatch fusion, fast precision: phase 9's rows on the same three
+     voices, on each wire: three plans (the rows under two seed sets;
+     the estimate pinned at 0.5 frames per id, a bucket overflow; the
+     margin pinned at 0.25, a shortfall) each seen twice on the
+     per-decode path, then each plan's third batch capturing its graph
+     and the next one replaying it, the first plan again after the
+     other plans' batches: the
+     per-decode bits (the exact bits for the misses, re-decodes and
+     re-fetches included), `fused` counted, 1 + 2 launches per decode and
+     re-decode, no capture failed; submit's host time fused and
+     per-decode, each plan's capture seconds and the graphs' memory.
+     Phase 4's windows print the share of their batches that replayed a
+     plan graph and fail on a failed capture.
 
 Then the card's nvidia-smi line, one JSON line of per-kernel numbers
 (launches summed over the CLI main paths of phases 3 and 6, the entry
-points of phase 8 and phase 9's batches and CLI runs), and the device
-line. Every phase prints its
+points of phase 8, phase 9's batches and CLI runs and phase 10's
+batches), and the device line. Every phase prints its
 start, its end and its wall seconds; a phase that raises is a failed
 check, and the failed checks are listed on stdout and on stderr before
 a non-zero exit.
@@ -136,8 +149,10 @@ measures the checkout in DIR instead (see measure()): run it on this
 checkout and on its parent, unpacked into a directory .gitignore lists,
 in turns within one call, to compare two versions on one card. Its
 line adds, where the checkout has them, each wire's transfer bytes per
-audio-second, the window's batches by path and
-python -m piper_tpu_torch.tools.profile_stages's stage times.
+audio-second, the window's batches by path (the fused ones among them),
+the graphs after the window (count, MiB, plan graphs, the seconds of
+each capture made in the window) and python -m piper_tpu_torch.tools.profile_stages's stage
+times.
 """
 
 from __future__ import annotations
@@ -559,7 +574,8 @@ def phase_main_path(tmp: Path, cfg, params_np, card: str):
     fast = TorchVoice(params_np, cfg, _voice_cfg(cfg), precision="fast", device="cuda")
     rng = np.random.default_rng(0)
     rows = [[1, 0] + [int(t) for t in rng.integers(3, 256, 250)] + [0, 2] for _ in range(16)]
-    fast.synthesize_ids_batch(rows, syn=_syn(seed=7))  # warm-up
+    settle(fast, rows, _syn(seed=7))
+    paths0 = dict(fast.path_counts)
     times, audio_s = [], 0.0
     for _ in range(3):
         t0 = time.perf_counter()
@@ -570,7 +586,9 @@ def phase_main_path(tmp: Path, cfg, params_np, card: str):
     frames_per_row = [len(a) // u for a in audios]
     print(f"warm batch, fast, 16 rows x {min(frames_per_row)}-{max(frames_per_row)} frames "
           f"({audio_s:.2f} audio-s): wall {sorted(times)} s, best {best:.4f} s, "
-          f"{audio_s / best:.1f} audio-s/s, RTF {best / audio_s:.5f}  [{card}]", flush=True)
+          f"{audio_s / best:.1f} audio-s/s, RTF {best / audio_s:.5f}; batches by path "
+          f"{ {k: n - paths0[k] for k, n in fast.path_counts.items() if n != paths0[k]} }  [{card}]",
+          flush=True)
     return launches, profile_batch(fast, rows)
 
 
@@ -584,6 +602,15 @@ def _syn(seed):
     from piper_tpu_torch.config import SynthesisConfig
 
     return SynthesisConfig(seed=seed)
+
+
+def settle(voice, rows, syn, batches: int = 8) -> None:
+    """`batches` batches of `rows`: the first takes the exact path, the
+    estimate and the transfer margin settle (the margin after 4
+    speculative batches), and the settled plan is seen 3 times and its
+    graph captured, so later batches of the rows replay one plan graph."""
+    for _ in range(batches):
+        voice.synthesize_ids_batch(rows, syn=syn)
 
 
 def profile_batch(voice, rows):
@@ -775,8 +802,8 @@ def check_graphs(voice) -> None:
     calls = []
     run = voice.graphs.run
 
-    def spying_run(key, fn, inputs):
-        out = run(key, fn, inputs)
+    def spying_run(key, fn, inputs, *rest):
+        out = run(key, fn, inputs, *rest)
         calls.append((key, fn, [None if x is None else x.to(voice.device) for x in inputs], out))
         return out
 
@@ -821,9 +848,9 @@ def phase_benchmark(tmp: Path, card: str) -> None:
     captures, warmed = [], []
     capture, warm = GraphCache._capture, B.warm
 
-    def counting_capture(self, *a):
+    def counting_capture(self, *a, **k):
         captures.append(a[0])
-        return capture(self, *a)
+        return capture(self, *a, **k)
 
     def marking_warm(*a, **k):
         warm(*a, **k)
@@ -838,9 +865,10 @@ def phase_benchmark(tmp: Path, card: str) -> None:
     finally:
         sys.stdin = saved
         GraphCache._capture, B.warm = capture, warm
+    plans = [k for k in captures if k[0] == "plan"]
     check(warmed == [len(captures)] and len(captures) > 0,
-          f"the benchmark's warm-up captured {warmed[0] if warmed else None} CUDA graphs, its timed runs "
-          f"{len(captures) - warmed[0] if warmed else None}")
+          f"the benchmark's warm-up captured {warmed[0] if warmed else None} CUDA graphs ({len(plans)} "
+          f"plan graphs among all), its timed runs {len(captures) - warmed[0] if warmed else None}")
     n_mrf, n_fused = V.mrf_fused.launches, V.fused_upsample_mrf.launches
     report = json.loads(out.getvalue().strip().splitlines()[-1])
     ok = (set(report) == {"load_sec", "rtf_mean", "rtf_stdev", "rtfs", "batch"} and len(report["rtfs"]) == 8
@@ -906,7 +934,7 @@ def phase_serving(cfg, params_np, card, peaks):
     voice.warmup((1, 16), full=True)
     stats = voice.graphs.stats
     print(f"serving: warmup((1, 16), full=True) {time.perf_counter() - t0:.3f} s; {stats['captures']} CUDA "
-          f"graphs captured in {stats['capture_s']:.3f} s (eager warm runs included), "
+          f"graphs captured in {stats['capture_s']:.3f} s, "
           f"{voice.graphs.memory_bytes() / 2**20:.1f} MiB of device memory held by the graphs  [{card}]")
     check_graphs(voice)
     # every phrase of the burst below in one batch, against each alone:
@@ -1008,6 +1036,12 @@ def phase_serving(cfg, params_np, card, peaks):
             check(moved["speculative"] > 0 and moved["speculative"] >= batches - 1,
                   f"window ({grouping}) runs speculative: batches by path and rows missed {moved} "
                   f"of {batches} batches")
+            plans = voice.graphs.capture_seconds
+            plan_s = [sec for k, sec in plans.items() if k[0] == "plan"]
+            check(moved["fused_failed"] == 0,
+                  f"window ({grouping}): dispatch fusion, {moved['fused']} of {batches} batches replayed a "
+                  f"plan graph (fused share {moved['fused'] / max(batches, 1)}), {moved['fused_failed']} "
+                  f"captures failed; {len(plan_s)} plan graphs so far, capture s each {plan_s}  [{card}]")
             lat = np.array([g[3] for _, g in got])
             rows = [r for r, _, _ in submits]
             print(f"serving: window ({grouping}) of {n} GETs from 16 closed-loop clients in {wall} s: "
@@ -1022,6 +1056,10 @@ def phase_serving(cfg, params_np, card, peaks):
             print(f"serving: window ({grouping}) under the profiler ({n} GETs in {wall} s): device "
                   f"busy {busy} s, idle share {1 - busy / wall}  [{card}]", flush=True)
         voice.submit = submit
+        n_plans = len([k for k in voice.graphs.capture_seconds if k[0] == "plan"])
+        print(f"serving: after the windows, {len(voice.graphs.capture_seconds)} CUDA graphs "
+              f"({n_plans} of them plan graphs), {voice.graphs.memory_bytes() / 2**20:.1f} MiB "
+              f"of device memory held by the graphs  [{card}]", flush=True)
 
         status, _, body, _ = http_get(port, "/batch?seed=3", data=json.dumps({"texts": TEXTS}).encode(),
                                       headers={"Content-Type": "application/json"})
@@ -1448,11 +1486,10 @@ def ops_off_the_card(fn):
 
 def warm_batch_device_ms(voice, rows, card, what):
     """Device time (torch.profiler, the sum of kernel time) and wall of
-    one warm 16-row batch, after two warm-up batches."""
+    one warm 16-row batch, once its plan has settled (settle())."""
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(2):
-        voice.synthesize_ids_batch(rows, syn=_syn(seed=7))
+    settle(voice, rows, _syn(seed=7))
     walls = []
     for _ in range(3):
         t0 = time.perf_counter()
@@ -2629,7 +2666,116 @@ def phase_speculative(tmp: Path, cfg, params_np, variants: Path, card: str) -> d
     return launches
 
 
-SPANNED = ("submit", "_encode", "_read_frames", "_latents", "_flow", "_vocode")
+# ---------------------------------------------------------------------------
+# Phase 10: dispatch fusion
+# ---------------------------------------------------------------------------
+
+
+def phase_fusion(cfg, params_np, variants: Path, card: str) -> dict:
+    """10: dispatch fusion on the card, fast precision: phase 9's rows on
+    phase 3's medium voice, phase 6's VITS2 voice and the trained
+    two-speaker x-low voice, on each wire. An exact batch, then three
+    plans brought to their second sighting on the per-decode path, the
+    estimate pinned before every batch so that each plan recurs: the
+    rows under two seed sets, the rows with the estimate at 0.5 frames
+    per id (every row overflows its bucket) and the rows with the margin
+    at 0.25 (rows fall past the transfer). Then each plan's third batch
+    runs it eagerly and captures its graph, and the next batch replays
+    it (a plan is captured once the graph captured before it has
+    recurred, runtime/voice.py); the first plan is replayed once more
+    after the other plans' batches have recycled the pinned host blocks:
+    the
+    per-decode bits (the exact bits for the misses, with the re-decodes
+    and re-fetches), `fused` counted, 1 + 2 launches per decode and
+    re-decode. No capture fails. Returns the batches' launches."""
+    import numpy as np
+
+    from piper_tpu_torch.config import SynthesisConfig
+    from piper_tpu_torch.runtime.voice import TorchVoice
+    from piper_tpu_torch.weights.native import load_native
+
+    launches = {"mrf_fused": 0, "fused_upsample_mrf": 0}
+    voices = [("medium", params_np, cfg, None)]
+    for name, path in (("VITS2 (post perturbed)", variants / "vits2.npz"),
+                       ("trained two-speaker x-low", TRAINED_MS2)):
+        params, vcfg = load_native(str(path))
+        voices.append((name, params, vcfg, 1))
+    for name, params, vcfg, speaker in voices:
+        rows = spec_rows(vcfg.num_symbols)
+        syn = SynthesisConfig(seed=3, speaker_id=speaker)
+        seeds = [[10 * i + j for j in range(len(rows))] for i in range(2)]
+        for wire in ("int16", "mulaw"):
+            what = f"{name}, {wire} wire"
+            t0 = time.perf_counter()
+            voice = TorchVoice(params, vcfg, _voice_cfg(vcfg), precision="fast", device="cuda", seed=0,
+                               wire_format=wire)
+            exact = voice.collect(voice.submit(rows, syn=syn, row_seeds=seeds[0]))
+            settled = voice._ratio, voice._spec_margin
+            pins = {"plan": settled, "overflow": ((0.5, 0.5), settled[1]), "shortfall": (settled[0], 0.25)}
+
+            def batch(pin, seed_set):
+                """A batch of the rows under a pinned estimate: (audio,
+                handle, host s in submit, launches)."""
+                voice._ratio, voice._spec_margin = pins[pin]
+                zero_counts()
+                t_sub = time.perf_counter()
+                handle = voice.submit(rows, syn=syn, row_seeds=seed_set)
+                t_sub = time.perf_counter() - t_sub
+                out = voice.collect(handle)
+                n = list(read_counts())
+                launches["mrf_fused"] += n[0]
+                launches["fused_upsample_mrf"] += n[1]
+                return out, handle, t_sub, n
+
+            per_decode = [batch("plan", s) for s in seeds]
+            for pin in ("overflow", "shortfall"):
+                for _ in range(2):
+                    out = batch(pin, seeds[0])[0]
+                    same = sum(len(a) == len(b) and np.array_equal(a, b) for a, b in zip(exact, out))
+                    check(same == len(rows), f"{what}, {pin} on the per-decode path: {same} of {len(rows)} "
+                                             "rows equal the exact batch bit for bit")
+            check(voice._fused_cache == {} and voice.path_counts["fused"] == 0,
+                  f"{what}: no plan captured before its third sighting ({voice._fused_cache})")
+            same = sum(len(a) == len(b) and np.array_equal(a, b) for a, b in zip(exact, per_decode[0][0]))
+            check(same == len(rows), f"{what}: {same} of {len(rows)} rows of the per-decode batches equal "
+                                     "the exact batch bit for bit")
+            # (pin, seed set, reference, miss counter, capture or replay)
+            runs = [("plan", 0, per_decode[0][0], None, "capture"),
+                    ("plan", 1, per_decode[1][0], None, "replay"),
+                    ("overflow", 0, exact, "redecoded", "capture"),
+                    ("overflow", 0, exact, "redecoded", "replay"),
+                    ("shortfall", 0, exact, "refetched", "capture"),
+                    ("shortfall", 0, exact, "refetched", "replay"),
+                    ("plan", 0, per_decode[0][0], None, "replay")]
+            fused_s = []
+            for pin, s_i, ref, miss, kind in runs:
+                before = dict(voice.path_counts)
+                out, handle, t_sub, n = batch(pin, seeds[s_i])
+                moved = {k: voice.path_counts[k] - before[k] for k in before}
+                same = sum(len(a) == len(b) and np.array_equal(a, b) for a, b in zip(ref, out))
+                check(moved["fused"] == 1 and moved["fused_failed"] == 0 and (miss is None or moved[miss] > 0)
+                      and same == len(rows),
+                      f"{what}, {pin} (seeds {s_i}): the batch's {kind} of its plan graph ({moved}); "
+                      f"{same} of {len(rows)} rows equal the {'exact' if miss else 'per-decode'} audio "
+                      f"bit for bit")
+                check(n == [handle["decodes"], 2 * handle["decodes"]],
+                      f"{what}, {pin} ({kind}): mrf_fused {n[0]} and fused_upsample_mrf {n[1]} launches "
+                      f"for {handle['decodes']} decodes and re-decodes (1 + 2 each)")
+                if pin == "plan" and kind == "replay":
+                    fused_s.append(t_sub)
+            states = sorted(voice._fused_cache.values())
+            check(states == ["ready"] * 3 and voice.path_counts["fused_failed"] == 0,
+                  f"{what}: plan graphs {states}, {voice.path_counts['fused_failed']} captures failed")
+            plan_s = [round(sec, 3) for k, sec in voice.graphs.capture_seconds.items() if k[0] == "plan"]
+            print(f"{what}: submit's host s, per-decode {per_decode[1][2]:.4f}, fused {fused_s[0]:.4f}; plan "
+                  f"capture s {plan_s}; {len(voice.graphs.capture_seconds)} graphs, "
+                  f"{voice.graphs.memory_bytes() / 2**20:.1f} MiB; {time.perf_counter() - t0:.1f} s of wall  "
+                  f"[{card}]", flush=True)
+            del voice
+    return launches
+
+
+SPANNED = ("submit", "_encode", "_read_frames", "_latents", "_flow", "_vocode", "_run_plan")
 
 
 def span_methods(cls):
@@ -2722,8 +2868,11 @@ def measure(root: str) -> int:
     fast = RV.TorchVoice(params_np, cfg, _voice_cfg(cfg), precision="fast", device="cuda")
     rng = np.random.default_rng(0)
     rows = [[1, 0] + [int(t) for t in rng.integers(3, 256, 250)] + [0, 2] for _ in range(16)]
-    for _ in range(2):  # a graph is captured at its key's second call
-        fast.synthesize_ids_batch(rows, syn=_syn(seed=7))
+    # a graph is captured at its key's second call, a plan graph (dispatch
+    # fusion, where the checkout has it) at its plan's third sighting once
+    # the estimate and the margin have settled
+    settle(fast, rows, _syn(seed=7))
+    paths0 = dict(getattr(fast, "path_counts", {}))
     times = []
     for _ in range(3):
         t0 = time.perf_counter()
@@ -2733,6 +2882,7 @@ def measure(root: str) -> int:
         fast.synthesize_ids_batch(rows, syn=_syn(seed=7))
     events = [e for e in prof.key_averages() if str(getattr(e, "device_type", "")).endswith("CUDA")]
     out["warm_batch"] = {
+        "paths": {k: n - paths0[k] for k, n in getattr(fast, "path_counts", {}).items()},
         "wall_ms": [t * 1e3 for t in times],
         "device_ms": sum(e.self_device_time_total for e in events) / 1e3,
         "top_kernels_ms": [[e.key[:60], e.self_device_time_total / 1e3, e.count] for e in
@@ -2767,6 +2917,8 @@ def measure(root: str) -> int:
         spans.clear()
         decodes.clear()
         batches0 = voice.batcher.stats["batches"]
+        paths0 = dict(getattr(voice, "path_counts", {}))
+        captured0 = dict(getattr(voice.graphs, "capture_seconds", {}))
         got, wall = clients(port, paths, 16, WINDOW_ROUNDS)
         lat = [g[3] for _, g in got]
         out["window"] = {
@@ -2774,12 +2926,20 @@ def measure(root: str) -> int:
             "requests_per_s": len(got) / wall, "p50_s": float(np.percentile(lat, 50)),
             "p99_s": float(np.percentile(lat, 99)),
             "batches": voice.batcher.stats["batches"] - batches0, "decodes": sum(decodes),
-            "paths": dict(getattr(voice, "path_counts", {})),
+            "paths": {k: n - paths0[k] for k, n in getattr(voice, "path_counts", {}).items()},
             **per_submit_ms(spans),
         }
+        if hasattr(voice.graphs, "capture_seconds"):  # the submitting threads' captures in the window
+            held = voice.graphs.capture_seconds
+            out["graphs_after_window"] = {
+                "graphs": len(held), "mib": voice.graphs.memory_bytes() / 2**20,
+                "plan_graphs": len([k for k in held if k[0] == "plan"]),
+                "window_capture_s": [sec for k, sec in held.items() if k not in captured0]}
+        paths0 = dict(getattr(voice, "path_counts", {}))
         n, pwall, busy = profiled_window(port, paths, WINDOW_ROUNDS)
-        out["profiled_window"] = {"requests": n, "wall_s": pwall, "device_busy_s": busy,
-                                  "idle_share": 1 - busy / pwall}
+        out["profiled_window"] = {
+            "requests": n, "wall_s": pwall, "device_busy_s": busy, "idle_share": 1 - busy / pwall,
+            "paths": {k: c - paths0[k] for k, c in getattr(voice, "path_counts", {}).items()}}
         q = f"/stream?text={urllib.parse.quote(STREAM_TEXT)}&seed=4"
         http_stream(port, q)
         chunks, firsts, totals = timed_streams(port, q, STREAMS)
@@ -2875,6 +3035,10 @@ def main(argv) -> int:
         # 9. speculative serving; its CLI runs' launches join the sums
         with phase("9, speculative serving"):
             for k, n in phase_speculative(tmp, cfg, params_np, tmp / "variants" / "voices", smi).items():
+                launches[k] += n
+        # 10. dispatch fusion; its batches' launches join the sums
+        with phase("10, dispatch fusion"):
+            for k, n in phase_fusion(cfg, params_np, tmp / "variants" / "voices", smi).items():
                 launches[k] += n
 
     if FAILURES:

@@ -32,15 +32,27 @@ from typing import List
 import numpy as np
 
 
-def warm(voice, utterances: List[List[int]], syn) -> None:
+def warm(voice, utterances: List[List[int]], syn, passes: int = 4) -> None:
     """Kernel builds and first calls of every shape the timings below
-    run. A CUDA graph is captured at its key's second call
-    (runtime/graphs.py), so the full set and each utterance run twice:
-    the timed runs only replay."""
-    for _ in range(2):
-        voice.synthesize_ids_batch(utterances, syn=syn)
-        for ids in utterances:
-            voice.synthesize_ids_batch([ids], syn=syn)
+    run, so that the timed runs only replay: the full set and each
+    utterance, twice (a shape's graph is captured at its key's second
+    call, runtime/graphs.py). With dispatch fusion on the speculative
+    path (fast precision), each 5 times in a row, again until a pass
+    captures no CUDA graph and every speculative batch of it replayed a
+    plan graph, at most `passes` times: a batch plan's graph is captured
+    at its third sighting once the plan graph captured before it has
+    recurred (runtime/voice.py), and an estimate that settles late
+    brings new plans."""
+    fusing = voice.dispatch_fusion and voice.precision == "fast"
+    for i in range(passes):
+        captures, paths = voice.graphs.stats["captures"], dict(voice.path_counts)
+        for ids_list in [utterances] + [[ids] for ids in utterances]:
+            for _ in range(5 if fusing else 1):
+                voice.synthesize_ids_batch(ids_list, syn=syn)
+        fused = voice.path_counts["fused"] - paths["fused"]
+        spec = voice.path_counts["speculative"] - paths["speculative"]
+        if i > 0 and (not fusing or voice.graphs.stats["captures"] == captures and fused == spec):
+            return
 
 
 def main(argv=None) -> None:

@@ -1,7 +1,7 @@
 """TorchVoice: a loaded voice and its batched synthesis path.
 
-Counterpart of piper_tpu/runtime/voice.py (TpuVoice), without dispatch
-fusion or a mesh. A batch of id sequences runs as
+Counterpart of piper_tpu/runtime/voice.py (TpuVoice), without a mesh.
+A batch of id sequences runs as
 
   1. Phase A: rows grouped by phoneme bucket (runtime/batching.py) and
      one encode per bucket (text encoder + duration predictor), each one
@@ -30,6 +30,31 @@ fusion or a mesh. A batch of id sequences runs as
      packed transfer on the wire format (int16, or mu-law encoded on the
      device: `wire_format`), and one copy of it to the host.
 
+Dispatch fusion (TpuVoice's dispatch_fusion, voice.py:600-735; on by
+default, as JAX's is without a mesh): once a speculative batch plan
+(each encode group's phoneme bucket and rows, each decode's encode
+group, frame bucket and row count, the transfer's a0 and total, the
+wire, a speaker or none) has been seen 3 times, the batch that sees it
+runs everything after the encodes as one function (_make_fused: every
+decode of the plan, then pack2) and captures it into one CUDA graph,
+which every later batch of that plan replays: each copies its inputs (the encode results,
+one int64 table of the rows' keys, each decode's rows and frame-window
+index and the speaker, the noise scale) into the graph and replays it
+once. The body calls the same stages as the per-decode path, each frame
+window through _frames_step on a copy of its inputs, so a fused batch's
+audio equals the per-decode path's bit for bit. Unlike JAX, whose
+compiles run in the background, a capture holds its batch and every
+request behind it (0.1-0.9 s on the card, PERF.md), so a voice that
+serves through a batcher captures nothing (its batches replay the plan
+graphs captured before, and take the per-decode path otherwise), a
+plan is captured only once the plan graph captured before it has
+recurred (FUSION_EXPIRY), and at most FUSION_PLANS plan graphs are
+kept, the
+least recently replayed destroyed first: a plan whose `total` follows
+drifting estimates may never recur, and its capture would be lost time
+and held memory. A capture that fails is logged and counted
+(`fused_failed`), and its plan keeps the per-decode path.
+
 Frame windows: a decode's rows are cut into windows of WINDOW_FRAMES
 frames with frame_halo(cfg) frames of context on either side, masked by
 the row's valid span, and every window of every decode of the voice
@@ -52,7 +77,9 @@ event after it), collect() waits on that event and returns the
 waveforms, so a server's batcher can collect on another thread while
 its next batch is submitted. With `batcher` set (server/batcher.py),
 synthesize_batch and synthesize_stream_raw go through it. With `timer`
-set (runtime/profiling.StageTimer), submit() times its phases.
+set (runtime/profiling.StageTimer), submit() times its phases (upload,
+encode, frames_wait, decode, pack, and fused: a plan graph's capture,
+copy-in and replay; copy).
 
 Threads: a server calls one voice from many threads. The generator of
 unseeded requests' seeds is guarded by a lock, the graphs by theirs
@@ -127,6 +154,15 @@ WINDOW_BUDGET = 8192
 # voice.py:115): a transfer's size is the body rounded up to this, or
 # to a power of two of at least it (pack_total="pow2").
 PACK_QUANTUM = 1 << 16
+# Dispatch fusion: plan graphs a voice keeps (a capture past them
+# destroys the least recently replayed), and the speculative batches
+# within which a plan graph must be replayed once: until it is, or until
+# these pass (it is then destroyed), no other plan is captured, so
+# traffic whose plans do not recur pays for one capture in this many
+# batches at most (a capture holds its batch 0.1-0.5 s on the card,
+# PERF.md).
+FUSION_PLANS = 16
+FUSION_EXPIRY = 64
 WIRE_FORMATS = ("int16", "mulaw")
 PACK_TOTALS = ("quantum", "pow2")
 
@@ -346,6 +382,7 @@ class TorchVoice:
         pack_total: str = "quantum",
         estimator_cache: bool = False,
         cache_dir: Optional[Union[str, Path]] = None,
+        dispatch_fusion: Optional[bool] = None,
     ):
         """`params`: the voice's parameter tree in the JAX package's
         layouts (numpy leaves, as weights/native.load_native returns it).
@@ -378,7 +415,10 @@ class TorchVoice:
         `estimator_cache`: keep the calibrated frames-per-id estimator
         and transfer margin in a snapshot under estimator_dir(cache_dir),
         keyed by the weights and every knob that shapes the speculative
-        path, so a fresh process starts on the speculative path."""
+        path, so a fresh process starts on the speculative path.
+        `dispatch_fusion` (TpuVoice's, voice.py:180-185; None means on):
+        replay one CUDA graph for each speculative batch plan seen 3
+        times (FUSION_EXPIRY and FUSION_PLANS bound the captures)."""
         if precision not in ("parity", "fast"):
             raise ValueError(f"precision: {precision!r}")
         if decode_grouping not in batching.DECODE_GROUPINGS:
@@ -433,9 +473,22 @@ class TorchVoice:
         self._spec_calibrated = False
         self._spec_need_hist: List[float] = []
         self._ratio_lock = threading.Lock()
-        # batches by path and rows the speculative path missed
-        self.path_counts = {"exact": 0, "speculative": 0, "refetched": 0, "redecoded": 0,
-                            "longform": 0}
+        # batches by path (fused: speculative batches that replayed a
+        # plan graph), rows the speculative path missed, failed captures
+        self.path_counts = {"exact": 0, "speculative": 0, "fused": 0, "refetched": 0,
+                            "redecoded": 0, "longform": 0, "fused_failed": 0}
+        # dispatch fusion: plan key -> "pending" | "ready" | "failed" (the
+        # ready ones least recently replayed first), sightings of the keys
+        # not captured yet (TpuVoice, voice.py:609-614), speculative
+        # batches seen, and the plan graph not replayed since its capture
+        # with the batch it was captured at
+        self._fusion = True if dispatch_fusion is None else bool(dispatch_fusion)
+        self._fused_cache: dict = {}
+        self._fused_counts: dict = {}
+        self._fused_batches = 0
+        self._unreplayed: Optional[Tuple[tuple, int]] = None
+        self._fused_lock = threading.Lock()
+        self._fused_done = threading.Condition(self._fused_lock)
         self._counts_lock = threading.Lock()
         self._estimator_cache_path: Optional[Path] = None
         if estimator_cache:
@@ -683,11 +736,14 @@ class TorchVoice:
         else:
             windows, width = [max(-(-f // W), 1) for f in frames], max(max(frames), 1)
         with self._span("decode"):
-            audio = self._vocode(enc, fbucket, keys_t, scale_t, self._speaker(syn, n), windows, width)
-            if self.precision == "fast":
-                # device-side int16 (voice.py:379-387): tanh output is in [-1, 1]
-                return torch.round(audio.float().clamp(-1.0, 1.0) * 32767.0).to(torch.int16)
-            return audio.float()
+            return self._audio_out(self._vocode(enc, fbucket, keys_t, scale_t, self._speaker(syn, n),
+                                                windows, width))
+
+    def _audio_out(self, audio: torch.Tensor) -> torch.Tensor:
+        if self.precision == "fast":
+            # device-side int16 (voice.py:379-387): tanh output is in [-1, 1]
+            return torch.round(audio.float().clamp(-1.0, 1.0) * 32767.0).to(torch.int16)
+        return audio.float()
 
     def _rows_index(self, members: Sequence[int], rows: int) -> Optional[torch.Tensor]:
         """`members` as a device index (pinned, copied without waiting),
@@ -713,13 +769,13 @@ class TorchVoice:
         return (out[..., h * f : (h + WINDOW_FRAMES) * f],)
 
     def _vocode(self, enc, fbucket: int, keys_t, scale_t, sid, windows: Sequence[int],
-                width: int) -> torch.Tensor:
+                width: int, idx: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Audio (rows, width * upsample) of encoded rows at `fbucket`:
         prior expansion, the rows' frame windows (_frames), then
         HiFiGAN's kernels at `width` frames. keys_t (rows, 2) and scale_t
-        (1,) on the device; sid (rows,) or None."""
+        (1,) on the device; sid (rows,) or None; idx as _frames takes it."""
         m_p, logs_p, y_mask = M.expand_prior(enc, fbucket)
-        x = self._frames(m_p, logs_p, y_mask, keys_t, scale_t, sid, windows)
+        x = self._frames(m_p, logs_p, y_mask, keys_t, scale_t, sid, windows, idx)
         f = self._prefix_factor
         if self.model_cfg.vocoder == "mb_istft":
             return x[:, : width * f]
@@ -727,14 +783,33 @@ class TorchVoice:
         return G.generator_tm_suffix(self.params["dec"], self.params["dec_tm"],
                                      x[:, :, : width * f].contiguous(), lens, cfg=self.model_cfg)
 
-    def _frames(self, m_p, logs_p, y_mask, keys_t, scale_t, sid, windows: Sequence[int]):
+    def _window_index(self, windows: Sequence[int]) -> List[int]:
+        """The frame windows' index of rows with windows[r] windows each
+        (nw = max(windows) slots a row): the used slots, then the order
+        of the window graph's replays, window_rows slots each, a replay's
+        last slots filled with copies of its first."""
+        nw, k = max(windows), self._win_rows
+        sel = [r * nw + w for r in range(len(windows)) for w in range(windows[r])]
+        order = []
+        for lo in range(0, len(sel), k):
+            part = sel[lo : lo + k]
+            order += part + part[:1] * (k - len(part))
+        return sel + order
+
+    def _frames(self, m_p, logs_p, y_mask, keys_t, scale_t, sid, windows: Sequence[int],
+                idx: Optional[torch.Tensor] = None):
         """The frame-level stages of rows (m_p, logs_p (rows, T, C), y_mask
         (rows, T, 1)): the first windows[r] frame windows of row r through
         the frame-window graph, window_rows windows a replay (padded with
         copies of the first), their centres stitched. Returns HiFiGAN's
         time-major (rows, C, nw * WINDOW_FRAMES * prefix_factor) or
         MB-iSTFT's (rows, nw * WINDOW_FRAMES * upsample) audio, nw =
-        max(windows)."""
+        max(windows).
+
+        `idx`: _window_index(windows) already on the device, from a plan
+        graph's body (_make_fused): then each replay's windows go through
+        _frames_step itself, on fresh copies as the graph's static inputs
+        would be (one capture cannot replay another graph)."""
         W, h = WINDOW_FRAMES, self._halo
         span, k = W + 2 * h, self._win_rows
         b, t = m_p.shape[:2]
@@ -745,25 +820,26 @@ class TorchVoice:
             xp = F.pad(x, (0, 0, h, right))[:, : nw * W + 2 * h]
             return xp.unfold(1, span, W).transpose(2, 3).reshape(b * nw, span, x.shape[2])
 
-        sel = [r * nw + w for r in range(b) for w in range(windows[r])]
-        order = []
-        for lo in range(0, len(sel), k):
-            part = sel[lo : lo + k]
-            order += part + part[:1] * (k - len(part))
-        idx = torch.tensor(sel + order, dtype=torch.long,
-                           pin_memory=self.device.type == "cuda").to(self.device, non_blocking=True)
-        sel_d, order_d = idx[: len(sel)], idx[len(sel) :]
+        n_sel = sum(windows)
+        fused = idx is not None
+        if not fused:
+            idx = torch.tensor(self._window_index(windows), dtype=torch.long,
+                               pin_memory=self.device.type == "cuda").to(self.device, non_blocking=True)
+        sel_d, order_d = idx[:n_sel], idx[n_sel:]
         offsets = (order_d % nw) * W - h
         windows_in = [x.index_select(0, order_d) for x in (cut(m_p), cut(logs_p), cut(y_mask))]
         keys_w = keys_t.index_select(0, order_d // nw)
         sid_w = None if sid is None else sid[:1].repeat(k)
         key = ("frames", k, span, self.dtype, sid is not None)
         outs = []
-        for lo in range(0, len(order), k):
+        for lo in range(0, order_d.shape[0], k):
             part = slice(lo, lo + k)
-            out = self.graphs.run(key, self._frames_step, (
-                *(x[part] for x in windows_in), keys_w[part], offsets[part], scale_t, sid_w))[0]
-            outs.append(out[: min(k, len(sel) - lo)])
+            inputs = (*(x[part] for x in windows_in), keys_w[part], offsets[part], scale_t, sid_w)
+            if fused:
+                out = self._frames_step(*(None if x is None else x.clone() for x in inputs))[0]
+            else:
+                out = self.graphs.run(key, self._frames_step, inputs)[0]
+            outs.append(out[: min(k, n_sel - lo)])
         centres = torch.cat(outs)
         buf = centres.new_zeros((b * nw,) + centres.shape[1:]).index_copy_(0, sel_d, centres)
         if buf.dim() == 2:  # MB-iSTFT's audio
@@ -1106,18 +1182,174 @@ class TorchVoice:
         # a0 and total count bytes, one a sample)
         a0 = -(-(4 if mulaw else 2) * len(rows) // 128) * 128
         total = a0 + round_total(int(est_total * margin), self.pack_total)
-        audio, ylens = [], []
-        for eg_no, fbucket, members in plan:
-            _, rkeys, enc, frames = groups[eg_no]
-            audio.append(self._decode_members(enc, rkeys, members, fbucket, None, syn))
-            sel = self._rows_index(members, frames.shape[0])
-            ylens.append(frames if sel is None else frames.index_select(0, sel))
-        with self._span("pack"):
-            packed = pack2(audio, ylens, a0, total, u, mulaw)
+        key = (tuple((enc.m_p.shape[1], enc.m_p.shape[0]) for _i, _k, enc, _f in groups),
+               tuple((eg_no, fbucket, len(members)) for eg_no, fbucket, members in plan),
+               a0, total, mulaw, self.speaker_id(syn) is not None)
+        packed = self._run_plan(key, groups, plan, syn)
+        if packed is None:
+            audio, ylens = [], []
+            for eg_no, fbucket, members in plan:
+                _, rkeys, enc, frames = groups[eg_no]
+                audio.append(self._decode_members(enc, rkeys, members, fbucket, None, syn))
+                sel = self._rows_index(members, frames.shape[0])
+                ylens.append(frames if sel is None else frames.index_select(0, sel))
+            with self._span("pack"):
+                packed = pack2(audio, ylens, a0, total, u, mulaw)
+        else:
+            packed, *audio = packed
         host, event = self._to_host(packed)
         return {"host": host, "event": event, "decodes": len(plan), "spec": {
             "a0": a0, "total": total, "est_body": est_total, "rows": rows, "audio": audio,
             "groups": groups, "syn": syn}}
+
+    # ------------------------------------------------------------------
+    # Dispatch fusion (TpuVoice, voice.py:645-735)
+    # ------------------------------------------------------------------
+
+    def _fused_get(self, key) -> Tuple[Optional[str], List[tuple]]:
+        """("ready", []) when the plan's graph is; ("capture", the plan
+        graphs to destroy first) when this batch captures it: at the
+        plan's 3rd sighting or later (TpuVoice._fused_get, voice.py:672-
+        700), unless the voice serves through a batcher (a capture would
+        hold every request waiting behind it), once the plan graph
+        captured last has been replayed or has gone FUSION_EXPIRY
+        batches without; else (None, [])."""
+        if not self._fusion:
+            return None, []
+        with self._fused_lock:
+            self._fused_batches += 1
+            state = self._fused_cache.get(key)
+            if state == "ready":
+                self._fused_cache[key] = self._fused_cache.pop(key)  # most recently used last
+                if self._unreplayed is not None and self._unreplayed[0] == key:
+                    self._unreplayed = None
+                return "ready", []
+            if state is not None:
+                return None, []
+            n = self._fused_counts.get(key, 0) + 1
+            self._fused_counts[key] = n
+            if n < 3 or self.batcher is not None:
+                return None, []
+            victims = []
+            if self._unreplayed is not None:
+                last, at = self._unreplayed
+                if (self._fused_batches - at < FUSION_EXPIRY
+                        or self._fused_cache.get(last) != "ready"):
+                    return None, []
+                del self._fused_cache[last]  # it did not recur
+                victims.append(last)
+            ready = [k for k, v in self._fused_cache.items() if v == "ready"]
+            if len(ready) >= FUSION_PLANS:
+                del self._fused_cache[ready[0]]
+                victims.append(ready[0])
+            self._unreplayed = (key, self._fused_batches)
+            self._fused_cache[key] = "pending"
+            return "capture", victims
+
+    def _run_plan(self, key, groups, plan, syn: SynthesisConfig) -> Optional[Tuple[torch.Tensor, ...]]:
+        """The batch through its plan's function (the packed transfer,
+        then each decode's audio): run eagerly and captured when
+        _fused_get says so, replayed once captured; None when the batch
+        takes the per-decode path. A capture that fails is logged with
+        its cause and counted, and its plan keeps the per-decode path."""
+        state, victims = self._fused_get(key)
+        if state is None:
+            return None
+        for victim in victims:
+            self.graphs.drop(("plan", victim))
+        inputs = self._plan_inputs(groups, plan, syn)
+        try:
+            with self._span("fused"):
+                out = self.graphs.run(("plan", key), self._make_fused(key), inputs, capture_at=1)
+        except Exception:
+            if state == "ready":
+                raise
+            _LOGGER.warning("dispatch fusion: capturing the graph of plan %s failed; its batches keep "
+                            "the per-decode path", key, exc_info=True)
+            self._count("fused_failed")
+            out = None
+        if state == "capture":
+            with self._fused_done:
+                self._fused_cache[key] = "ready" if out is not None else "failed"
+                if out is None and self._unreplayed is not None and self._unreplayed[0] == key:
+                    self._unreplayed = None
+                self._fused_done.notify_all()
+        if out is not None:
+            self._count("fused")
+        return out
+
+    def _plan_inputs(self, groups, plan, syn: SynthesisConfig) -> List[torch.Tensor]:
+        """A batch's inputs of its plan graph: each encode group's results
+        and frame counts (on the device), then one int64 table (each
+        group's (rows, 2) key words, each decode's rows in its encode
+        group, each decode's frame-window index (_window_index), the
+        speaker when there is one) and the (1,) noise scale, pinned on
+        CUDA."""
+        with self._span("upload"):
+            nw = [-(-fbucket // WINDOW_FRAMES) for _eg, fbucket, _m in plan]
+            words = [w for _i, rkeys, _e, _f in groups for k in rkeys for w in (k >> 32, k & prng.MASK)]
+            words += [j for _eg, _fb, members in plan for j in members]
+            words += [j for n, (_eg, _fb, members) in zip(nw, plan)
+                      for j in self._window_index([n] * len(members))]
+            spk = self.speaker_id(syn)
+            if spk is not None:
+                words.append(spk)
+            table = torch.tensor(words, dtype=torch.int64, pin_memory=self.device.type == "cuda")
+            scale = self._host_zeros((1,))
+            scale[0] = self._scales(syn)[0]
+        return [t for _i, _k, enc, frames in groups for t in (*enc, frames)] + [table, scale]
+
+    def _make_fused(self, key):
+        """The plan graph's function (TpuVoice._make_fused, voice.py:645-
+        670) over _plan_inputs' tensors: for each decode of the plan what
+        the speculative path's _decode_members does (select the rows,
+        prior expansion, every frame window of the bucket through
+        _frames_step, both kernels, int16), then pack2. Every index comes
+        in the table, so the body copies nothing from the host and reads
+        nothing back. Returns the packed transfer and each decode's audio
+        (collect() re-fetches from it)."""
+        groups, plan, a0, total, mulaw, has_sid = key
+        W, u = WINDOW_FRAMES, self.model_cfg.upsample_factor
+        ng = len(groups)
+
+        def fused(*inputs):
+            encs = [M.EncodeResult(*inputs[5 * g : 5 * g + 4]) for g in range(ng)]
+            frames = inputs[4 : 5 * ng : 5]
+            table, scale = inputs[5 * ng :]
+            keys, pos = [], 0
+            for _pb, rows in groups:
+                keys.append(table[pos : pos + 2 * rows].view(rows, 2))
+                pos += 2 * rows
+            sels = []
+            for _eg, _fb, n in plan:
+                sels.append(table[pos : pos + n])
+                pos += n
+            audio, ylens = [], []
+            for (eg_no, fb, n), sel in zip(plan, sels):
+                windows = [-(-fb // W)] * n
+                win_idx = table[pos : pos + 2 * sum(windows) + (-sum(windows)) % self._win_rows]
+                pos += win_idx.shape[0]
+                enc = M.EncodeResult(*(t.index_select(0, sel) for t in encs[eg_no]))
+                sid = table[-1:].expand(n) if has_sid else None
+                x = self._vocode(enc, fb, keys[eg_no].index_select(0, sel), scale, sid, windows, fb,
+                                 win_idx)
+                audio.append(self._audio_out(x))
+                ylens.append(frames[eg_no].index_select(0, sel))
+            return (pack2(audio, ylens, a0, total, u, mulaw), *audio)
+
+        return fused
+
+    @property
+    def dispatch_fusion(self) -> bool:
+        return self._fusion
+
+    def wait_dispatch_fusion(self, timeout: float = 120.0) -> bool:
+        """Block until no plan graph is being captured on another thread
+        (True) or `timeout` seconds pass (False); True at once with
+        fusion off (TpuVoice.wait_dispatch_fusion, voice.py:717-735)."""
+        with self._fused_done:
+            return self._fused_done.wait_for(
+                lambda: "pending" not in self._fused_cache.values(), timeout)
 
     def _seg_to_float(self, seg: np.ndarray) -> np.ndarray:
         """One segment of the transfer -> float32 (decodes the wire)."""

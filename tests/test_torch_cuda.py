@@ -475,7 +475,10 @@ def test_streams_and_coalesced_batches_at_once_on_card(medium):
     for _ in range(2):  # a key's second call captures its graph
         alone_streams = [run_stream(ids) for ids in stream_ids]
         alone_batch = run_batch()
-    captures = voice.graphs.stats["captures"]
+    def shape_graphs():  # a plan graph (dispatch fusion) may be captured meanwhile
+        return {k for k in voice.graphs.capture_seconds if k[0] != "plan"}
+
+    shapes = shape_graphs()
     got_streams, got_batches = [[] for _ in stream_ids], []
     barrier = threading.Barrier(len(stream_ids) + 1)
 
@@ -496,7 +499,7 @@ def test_streams_and_coalesced_batches_at_once_on_card(medium):
     for t in threads:
         t.join(timeout=600)
     assert not any(t.is_alive() for t in threads)
-    assert voice.graphs.stats["captures"] == captures
+    assert shape_graphs() == shapes
     assert [len(s) for s in got_streams] == [6] * len(stream_ids) and len(got_batches) == 6
     for i, runs in enumerate(got_streams):
         assert all(r == alone_streams[i] for r in runs), i
@@ -736,3 +739,56 @@ def test_speculative_batch_equals_exact_batch_on_card(dev, wire):
                                                                    2 * handle["decodes"])
     for i, (a, b) in enumerate(zip(exact, spec)):
         np.testing.assert_array_equal(a, b, err_msg=f"row {i}")
+
+
+@pytest.mark.parametrize("wire", ["int16", "mulaw"])
+@pytest.mark.parametrize("variant", ["vits", "vits2", "mb_istft"])
+def test_fused_plan_replays_give_the_per_decode_bits_on_card(dev, variant, wire):
+    """Dispatch fusion on the card, fast precision, medium voices (flow
+    post perturbed; VITS2 speaker 1): 12 rows of several phoneme
+    buckets, an exact batch, then speculative batches of the same rows
+    with the estimate pinned, so that the plan recurs: seed sets 0 and 1
+    on the per-decode path, then seed set 2, whose batch captures the
+    plan's graph (it records one mrf_fused and two fused_upsample_mrf
+    launches per decode, none for MB-iSTFT) and replays it. Each seed set
+    then replays it after batches of other rows (other plans) have
+    recycled the pinned host blocks of the earlier uploads: a stale
+    upload read at replay would give the wrong seeds' audio. Every replay
+    counts `fused` and adds its graph's launches, and gives its seed
+    set's per-decode audio bit for bit."""
+    import numpy as np
+
+    from piper_tpu_torch.config import SynthesisConfig
+    from piper_tpu_torch.ops.cuda import vocoder as V
+
+    voice = _variant_voice(variant, "fast")
+    voice.set_wire_format(wire)
+    syn = SynthesisConfig(speaker_id=1 if variant == "vits2" else None)
+    rows = [_long_ids(n) for n in (5, 23, 40, 61, 90, 120, 14, 77, 33, 8, 101, 47)]
+    others = [_long_ids(n) for n in (7, 150, 30)]
+    seeds = [[100 * i + j for j in range(len(rows))] for i in range(3)]
+    voice.collect(voice.submit(rows, syn=syn, row_seeds=seeds[0]))
+    pinned = voice._ratio, voice._spec_margin
+
+    def batch(ids, seed_set):
+        voice._ratio, voice._spec_margin = pinned
+        return voice.collect(voice.submit(ids, syn=syn, row_seeds=seed_set))
+
+    per_decode = [batch(rows, s) for s in seeds[:2]]
+    assert voice._fused_cache == {} and voice.path_counts["fused"] == 0
+    batch(rows, seeds[2])
+    (key, state), = voice._fused_cache.items()
+    assert state == "ready" and voice.path_counts["fused"] == 1
+    n = len(key[1])
+    want = (0, 0) if variant == "mb_istft" else (n, 2 * n)  # the graph's, per replay
+    for i, s in enumerate(seeds[:2]):
+        for k in range(2):
+            batch(others, [7 * i + k + j for j in range(len(others))])
+        before = V.mrf_fused.launches, V.fused_upsample_mrf.launches, voice.path_counts["fused"]
+        got = batch(rows, s)
+        dm, du = V.mrf_fused.launches - before[0], V.fused_upsample_mrf.launches - before[1]
+        assert du == 2 * dm and dm >= want[0] and (dm == 0) == (want[0] == 0)  # re-decodes add 1 + 2
+        assert voice.path_counts["fused"] == before[2] + 1
+        for r, (a, b) in enumerate(zip(per_decode[i], got)):
+            np.testing.assert_array_equal(a, b, err_msg=f"seeds {i}, row {r}")
+    assert voice.path_counts["fused_failed"] == 0

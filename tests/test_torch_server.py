@@ -504,8 +504,8 @@ def test_http_health_and_metrics_keys_match_jax(served):
     assert bodies["torch"]["/health"]["sample_rate"] == 22050
     assert bodies["torch"]["/metrics"].keys() == bodies["jax"]["/metrics"].keys() | {"paths"}
     assert 0.25 <= bodies["torch"]["/metrics"]["spec_margin"] <= 1.5  # JAX's bounds
-    assert set(bodies["torch"]["/metrics"]["paths"]) == {"exact", "speculative", "refetched",
-                                                         "redecoded", "longform"}
+    assert set(bodies["torch"]["/metrics"]["paths"]) == {"exact", "speculative", "fused", "refetched",
+                                                         "redecoded", "longform", "fused_failed"}
     assert bodies["torch"]["/metrics"]["batcher"].keys() == bodies["jax"]["/metrics"]["batcher"].keys()
 
 

@@ -95,8 +95,8 @@ def test_speculative_audio_matches_jax_speculative():
     ref = jv.synthesize_ids_batch(rows, syn=JSynthesisConfig(seed=9))
     got_exact = tv.synthesize_ids_batch(rows, syn=SynthesisConfig(seed=9))
     got = tv.synthesize_ids_batch(rows, syn=SynthesisConfig(seed=9))
-    assert tv.path_counts == {"exact": 1, "speculative": 1, "refetched": 0, "redecoded": 0,
-                              "longform": 0}
+    assert tv.path_counts == {"exact": 1, "speculative": 1, "fused": 0, "refetched": 0,
+                              "redecoded": 0, "longform": 0, "fused_failed": 0}
     assert [len(g) for g in got] == [len(r) for r in ref]
     for i, (g, r) in enumerate(zip(got, ref)):
         np.testing.assert_allclose(g, r, atol=FAST_ATOL, rtol=0, err_msg=f"row {i}")
