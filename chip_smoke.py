@@ -131,12 +131,27 @@ Phases (any failure makes the exit code non-zero):
      re-decode, no capture failed; submit's host time fused and
      per-decode, each plan's capture seconds and the graphs' memory.
      Phase 4's windows print the share of their batches that replayed a
-     plan graph and fail on a failed capture.
+     plan graph and fail on a failed capture;
+ 11. parallelism (piper_tpu_torch/parallel/), correctness only (the
+     machine has one H100: no multi-GPU number exists): this process in
+     a group of world size 1 over NCCL, where make_mesh(1, 1),
+     vocode_data_parallel, sharded_vocode at model=1, the mesh voice
+     (medium, fast, both wires, an exact then a speculative batch) and
+     one sharded training step (medium, batch 2; losses bit for bit,
+     parameters within the run-to-run spread of the card's backward)
+     give the unsharded calls' results; meanwhile two gloo ranks on the
+     card (NCCL cannot put two ranks on one GPU; python3 chip_smoke.py
+     --parallel-rank RANK DIR, CUDA tensors): vocode_data_parallel at
+     data=2 and the mesh voice at data=2 give the one-rank bits on every
+     rank with 1 + 2 launches per decode on each, sharded_vocode at
+     model=2 the monolithic plain decode within 1e-4 (float32) and 3e-2
+     (bfloat16), the largest difference printed.
 
 Then the card's nvidia-smi line, one JSON line of per-kernel numbers
 (launches summed over the CLI main paths of phases 3 and 6, the entry
-points of phase 8, phase 9's batches and CLI runs and phase 10's
-batches), and the device line. Every phase prints its
+points of phase 8, phase 9's batches and CLI runs, phase 10's batches
+and phase 11's mesh voices and vocode_data_parallel calls, both ranks'
+included), and the device line. Every phase prints its
 start, its end and its wall seconds; a phase that raises is a failed
 check, and the failed checks are listed on stdout and on stderr before
 a non-zero exit.
@@ -2775,6 +2790,271 @@ def phase_fusion(cfg, params_np, variants: Path, card: str) -> dict:
     return launches
 
 
+
+# ---------------------------------------------------------------------------
+# Phase 11: parallelism (piper_tpu_torch/parallel/)
+# ---------------------------------------------------------------------------
+
+PARALLEL_FRAMES = (400, 361)  # the rows of vocode_data_parallel and sharded_vocode
+PARALLEL_HALO = 64  # sharded_vocode's default
+
+
+def parallel_inputs(cfg, seed: int = 5):
+    """(z_p (2, 400, C) float32, masked; y_mask (2, 400, 1)) on the host."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    t = max(PARALLEL_FRAMES)
+    mask = (np.arange(t)[None, :, None] < np.array(PARALLEL_FRAMES)[:, None, None]).astype(np.float32)
+    z = rng.standard_normal((len(PARALLEL_FRAMES), t, cfg.inter_channels)).astype(np.float32)
+    return z * mask, mask
+
+
+def parallel_voice_batches(voice, rows, syn, seeds):
+    """An exact batch, then the same rows again (speculative): (exact,
+    speculative audio, the second took the speculative path, decodes of
+    both, (mrf_fused, fused_upsample_mrf) launches)."""
+    zero_counts()
+    first = voice.submit(rows, syn=syn, row_seeds=seeds)
+    exact = voice.collect(first)
+    second = voice.submit(rows, syn=syn, row_seeds=seeds)
+    spec = voice.collect(second)
+    return exact, spec, "spec" in second, first["decodes"] + second["decodes"], list(read_counts())
+
+
+def step_param_spread(ref, got):
+    """(elements that differ, the largest difference) between two
+    parameter lists."""
+    n_diff, worst = 0, 0.0
+    for a, b in zip(ref, got):
+        d = (a - b).abs()
+        n_diff += int((d > 0).sum())
+        worst = max(worst, float(d.max()))
+    return n_diff, worst
+
+
+def parallel_rank(rank: int, out: Path) -> int:
+    """One of phase 11's two ranks on the one card (python3 chip_smoke.py
+    --parallel-rank RANK DIR): a gloo group over DIR/store, CUDA tensors
+    on cuda:0; vocode_data_parallel at data=2, the mesh voice at data=2 on
+    both wires (an exact then a speculative batch), sharded_vocode at
+    model=2 in float32 and bfloat16. Writes DIR/rank<RANK>.npz."""
+    import datetime
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    from piper_tpu_torch.models.vits import generator as G
+    from piper_tpu_torch.parallel.mesh import make_mesh
+    from piper_tpu_torch.parallel.sharding import vocode_data_parallel
+    from piper_tpu_torch.parallel.vocoder_shard import sharded_vocode
+    from piper_tpu_torch.runtime.voice import TorchVoice, tf32_off
+    from piper_tpu_torch.weights.bridge import params_from_jax
+    from piper_tpu_torch.weights.native import load_native
+
+    torch.cuda.set_device(0)
+    tf32_off()
+    dist.init_process_group("gloo", init_method=f"file://{out}/store", rank=rank, world_size=2,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        params_np, cfg = load_native(str(out / "voice.npz"))
+        x = np.load(out / "inputs.npz")
+        data = make_mesh(2, 1, device="cuda:0")
+        model = make_mesh(1, 2, device="cuda:0")
+        z, mask = torch.from_numpy(x["z"]).cuda(), torch.from_numpy(x["mask"]).cuda()
+        res = {}
+        params = params_from_jax(params_np, cfg, "cuda", torch.float32)
+        params["dec_tm"] = G.prepare_tm(params["dec"], cfg, torch.float32)
+        with torch.inference_mode():
+            zero_counts()
+            res["vdp"] = vocode_data_parallel(params, z, mask, None, cfg=cfg, mesh=data).cpu().numpy()
+            res["vdp_launches"] = np.array(read_counts())
+            for dtype in (torch.float32, torch.bfloat16):
+                p = params_from_jax(params_np, cfg, "cuda", dtype)
+                res[f"sv_{str(dtype)[6:]}"] = sharded_vocode(
+                    p, z.to(dtype), mask.to(dtype), cfg=cfg, mesh=model,
+                    halo_frames=PARALLEL_HALO).float().cpu().numpy()
+        rows = spec_rows(cfg.num_symbols)
+        for wire in ("int16", "mulaw"):
+            voice = TorchVoice(params_np, cfg, _voice_cfg(cfg), precision="fast", seed=0,
+                               wire_format=wire, mesh=data)
+            exact, spec, took, decodes, n = parallel_voice_batches(voice, rows, _syn(3), list(range(len(rows))))
+            for i, (a, b) in enumerate(zip(exact, spec)):
+                res[f"voice_{wire}_exact_{i}"], res[f"voice_{wire}_spec_{i}"] = a, b
+            res[f"voice_{wire}_meta"] = np.array([took, decodes, *n])
+            del voice
+        np.savez(out / f"rank{rank}.npz", **res)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def phase_parallel(tmp: Path, cfg, params_np, card: str) -> dict:
+    """11: parallel/ on the one H100. Two gloo ranks on the card start
+    first (NCCL cannot put two ranks on one GPU), and meanwhile this
+    process joins a group of world size 1 over NCCL, where make_mesh(1,
+    1), vocode_data_parallel, sharded_vocode at model=1 and the mesh
+    voice (fast, both wires, an exact then a speculative batch) must give
+    the unsharded calls' bits, and one sharded training step at the
+    medium preset the unsharded step's losses bit for bit and its
+    parameters within the unsharded step's own run-to-run spread (the
+    card's backward is not bit-reproducible); then the ranks' results: vocode_data_parallel at data=2 and the
+    mesh voice at data=2 the one-rank bits on every rank, with 1 + 2
+    launches per decode on each rank, and sharded_vocode at model=2
+    against the monolithic plain decode within the kernels' limits (1e-4
+    float32, 3e-2 bfloat16). Returns the main-path launches: the mesh
+    voices' batches and vocode_data_parallel, here and on both ranks."""
+    import datetime
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from piper_tpu_torch.models.vits import generator as G
+    from piper_tpu_torch.models.vits.model import apply_decoder, synthesizer_flow, synthesizer_vocode
+    from piper_tpu_torch.ops import prng
+    from piper_tpu_torch.parallel.mesh import make_mesh
+    from piper_tpu_torch.parallel.sharding import make_sharded_train_step, shard_batch, vocode_data_parallel
+    from piper_tpu_torch.parallel.vocoder_shard import sharded_vocode
+    from piper_tpu_torch.runtime.voice import TorchVoice
+    from piper_tpu_torch.train.dataset import write_synthetic_dataset
+    from piper_tpu_torch.train.step import init_params, leaves, make_train_state, train_step
+    from piper_tpu_torch.weights.bridge import params_from_jax
+    from piper_tpu_torch.weights.native import save_native
+
+    launches = {"mrf_fused": 0, "fused_upsample_mrf": 0}
+    out = tmp / "parallel"
+    out.mkdir()
+    save_native(str(out / "voice.npz"), params_np, cfg)
+    z_np, mask_np = parallel_inputs(cfg)
+    np.savez(out / "inputs.npz", z=z_np, mask=mask_np)
+    logs = [open(out / f"rank{r}.log", "w") for r in range(2)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--parallel-rank", str(r),
+                               str(out)], stdout=logs[r], stderr=subprocess.STDOUT) for r in range(2)]
+    refs = {}
+    rows = spec_rows(cfg.num_symbols)
+    seeds = list(range(len(rows)))
+    try:
+        dist.init_process_group("nccl", init_method=f"file://{out}/nccl_store", rank=0, world_size=1,
+                                timeout=datetime.timedelta(seconds=300))
+        try:
+            mesh = make_mesh(1, 1)
+            check(mesh.shape == {"data": 1, "model": 1} and mesh.device == torch.device("cuda:0")
+                  and dist.get_backend() == "nccl",
+                  f"world size 1 over {dist.get_backend()}: make_mesh(1, 1) is {mesh.shape} on {mesh.device}")
+            z, mask = torch.from_numpy(z_np).cuda(), torch.from_numpy(mask_np).cuda()
+            params = params_from_jax(params_np, cfg, "cuda", torch.float32)
+            params["dec_tm"] = G.prepare_tm(params["dec"], cfg, torch.float32)
+            with torch.inference_mode():
+                ref = synthesizer_vocode(params, z, mask, cfg=cfg)
+                zero_counts()
+                got = vocode_data_parallel(params, z, mask, None, cfg=cfg, mesh=mesh)
+                n = list(read_counts())
+                launches["mrf_fused"] += n[0]
+                launches["fused_upsample_mrf"] += n[1]
+                refs["vdp"] = got.cpu().numpy()
+                check(torch.equal(got, ref) and n == [1, 2],
+                      f"world size 1: vocode_data_parallel gives synthesizer_vocode's bits "
+                      f"({torch.equal(got, ref)}), launches {n} (1 + 2)")
+                for dtype in (torch.float32, torch.bfloat16):
+                    p = params_from_jax(params_np, cfg, "cuda", dtype)
+                    zd, md = z.to(dtype), mask.to(dtype)
+                    mono = apply_decoder(p, synthesizer_flow(p, zd, md, cfg=cfg), md, cfg=cfg)
+                    sv = sharded_vocode(p, zd, md, cfg=cfg, mesh=mesh, halo_frames=PARALLEL_HALO)
+                    refs[f"sv_{str(dtype)[6:]}"] = mono.float().cpu().numpy()
+                    check(torch.equal(sv, mono), f"world size 1: sharded_vocode at model=1 gives the "
+                                                 f"monolithic plain decode's bits ({dtype})")
+            for wire in ("int16", "mulaw"):
+                outs = {}
+                for name, kw in (("one device", dict(device="cuda")), ("mesh", dict(mesh=mesh))):
+                    voice = TorchVoice(params_np, cfg, _voice_cfg(cfg), precision="fast", seed=0,
+                                       wire_format=wire, **kw)
+                    outs[name] = parallel_voice_batches(voice, rows, _syn(3), seeds)
+                    del voice
+                (e1, s1, took1, _d, _n), (e2, s2, took2, d2, n2) = outs["one device"], outs["mesh"]
+                launches["mrf_fused"] += n2[0]
+                launches["fused_upsample_mrf"] += n2[1]
+                refs[f"voice_{wire}"] = (e1, s1)
+                same = sum(np.array_equal(a, b) for a, b in zip(e1 + s1, e2 + s2))
+                check(took1 and took2 and same == 2 * len(rows) and n2 == [d2, 2 * d2],
+                      f"world size 1, {wire} wire: the mesh voice's exact and speculative batches "
+                      f"equal the one-device voice's bit for bit ({same} of {2 * len(rows)} rows; "
+                      f"speculative {took1}, {took2}); launches {n2} for {d2} decodes")
+            ds = write_synthetic_dataset(out / "data", n_utterances=2, sample_rate=22050,
+                                         num_symbols=256, seconds=(1.5, 2.0), ids=(30, 40), seed=0)
+            batch = train_batch(ds, cfg, 2)
+            g, d = init_params(1, cfg)
+            key = prng.prng_key(3)
+            states, metrics = [], []
+            for fn in (lambda st: train_step(st, _to(batch, "cuda"), key.cuda(), cfg=cfg),
+                       lambda st: train_step(st, _to(batch, "cuda"), key.cuda(), cfg=cfg),
+                       lambda st: make_sharded_train_step(cfg, mesh)(st, shard_batch(batch, mesh), key)):
+                st, met = fn(make_train_state(g, d, cfg, device="cuda"))
+                states.append([t.detach() for t in leaves(st.params_g) + leaves(st.params_d)])
+                metrics.append(met)
+            loss_same = all(torch.equal(metrics[0][k], m[k]) for m in metrics[1:]
+                            for k in metrics[0] if k.startswith("loss"))
+            (n_again, worst_again), (n_sharded, worst_sharded) = (
+                step_param_spread(states[0], states[i]) for i in (1, 2))
+            # the card's backward sums by atomics, so the unsharded step
+            # itself moves between runs; the sharded step (the same code
+            # at world size 1) may move as far, and no further than one
+            # Adam step's sign flip, 2 lr (lr 2e-4), allows
+            check(loss_same and n_sharded <= 2 * n_again and worst_sharded <= 2.5 * 2e-4,
+                  f"world size 1: one sharded training step (medium, batch 2, float32): the unsharded "
+                  f"step's losses bit for bit ({loss_same}); parameters {n_sharded} elements apart from "
+                  f"the unsharded step's, the largest by {worst_sharded:.3g}, against the unsharded "
+                  f"step run again: {n_again} elements, the largest by {worst_again:.3g} (at most "
+                  f"twice as many, and 2.5 lr)")
+        finally:
+            dist.destroy_process_group()
+    finally:
+        for p in procs:
+            try:
+                p.wait(timeout=max(1.0, 600 - (time.perf_counter() - t0)))
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    for r, p in enumerate(procs):
+        log = (out / f"rank{r}.log").read_text()
+        check(p.returncode == 0, f"gloo rank {r} of 2 on the card exited {p.returncode}")
+        if p.returncode != 0:
+            print(log[-4000:], flush=True)
+            return launches
+    tol = {"float32": 1e-4, "bfloat16": 3e-2}
+    for r in range(2):
+        res = np.load(out / f"rank{r}.npz")
+        n = [int(v) for v in res["vdp_launches"]]
+        launches["mrf_fused"] += n[0]
+        launches["fused_upsample_mrf"] += n[1]
+        check(np.array_equal(res["vdp"], refs["vdp"]) and n == [1, 2],
+              f"gloo rank {r} of 2: vocode_data_parallel at data=2 gives the one-rank bits on every row "
+              f"({np.array_equal(res['vdp'], refs['vdp'])}), launches {n} (1 + 2)")
+        for dtype, limit in tol.items():
+            err = float(np.abs(res[f"sv_{dtype}"] - refs[f"sv_{dtype}"]).max())
+            check(err <= limit, f"gloo rank {r} of 2: sharded_vocode at model=2 (halo {PARALLEL_HALO}) "
+                                f"against the monolithic plain decode, {dtype}: largest difference "
+                                f"{err:.3g} (limit {limit})")
+        for wire in ("int16", "mulaw"):
+            took, decodes, *n = (int(v) for v in res[f"voice_{wire}_meta"])
+            launches["mrf_fused"] += n[0]
+            launches["fused_upsample_mrf"] += n[1]
+            e1, s1 = refs[f"voice_{wire}"]
+            same = sum(np.array_equal(a, res[f"voice_{wire}_{kind}_{i}"])
+                       for kind, ref in (("exact", e1), ("spec", s1)) for i, a in enumerate(ref))
+            check(took and same == 2 * len(rows) and n == [decodes, 2 * decodes],
+                  f"gloo rank {r} of 2, {wire} wire: the mesh voice at data=2 returns every row with "
+                  f"the one-device bits ({same} of {2 * len(rows)}; speculative {bool(took)}); "
+                  f"launches {n} for {decodes} decodes (1 + 2 each)")
+    print(f"phase 11: no multi-GPU number: the card's machine has one H100; these checks are "
+          f"correctness only  [{card}]", flush=True)
+    return launches
+
 SPANNED = ("submit", "_encode", "_read_frames", "_latents", "_flow", "_vocode", "_run_plan")
 
 
@@ -2969,6 +3249,8 @@ def main(argv) -> int:
         return 2
     if argv[:1] == ["--measure"] and len(argv) == 2:
         return measure(argv[1])
+    if argv[:1] == ["--parallel-rank"] and len(argv) == 3:
+        return parallel_rank(int(argv[1]), Path(argv[2]))
     if argv:
         print("usage: chip_smoke.py [--measure DIR]", file=sys.stderr)
         return 2
@@ -3039,6 +3321,11 @@ def main(argv) -> int:
         # 10. dispatch fusion; its batches' launches join the sums
         with phase("10, dispatch fusion"):
             for k, n in phase_fusion(cfg, params_np, tmp / "variants" / "voices", smi).items():
+                launches[k] += n
+        # 11. parallelism; the mesh voices' and vocode_data_parallel's
+        # launches (this process's and both ranks') join the sums
+        with phase("11, parallelism"):
+            for k, n in phase_parallel(tmp, cfg, params_np, smi).items():
                 launches[k] += n
 
     if FAILURES:

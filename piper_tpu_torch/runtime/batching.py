@@ -115,30 +115,32 @@ def plan_packed_groups(
 DECODE_GROUPINGS = ("bucketed", "uniform", "packed")
 
 
-def round_rows(n: int) -> int:
-    """A group's row count rounded up to a power of two: the row counts
-    a fixed-shape step is built for (the JAX package's jit shapes, the
-    port's CUDA graphs)."""
+def round_rows(n: int, data: int = 1) -> int:
+    """A group's row count rounded up to a power of two, and to a
+    multiple of the data-axis size (TpuVoice._round_rows, voice.py:
+    633-641): the rows a decode pads to, and so what it costs."""
     p = 1
     while p < n:
         p <<= 1
-    return p
+    return -(-p // data) * data
 
 
 def plan_decode_groups(
     frame_counts: Sequence[int],
     grouping: str,
     frame_buckets: Sequence[int],
+    data: int = 1,
 ) -> List[Tuple[int, List[int]]]:
     """[(frame_bucket, row_positions)] for one encode group's rows:
     "uniform" one decode at the bucket of the longest row; "bucketed"
     one decode per frame bucket; "packed" plan_packed_groups' partition.
-    Every count must fit the ladder (pick_bucket raises past it)."""
+    Every count must fit the ladder (pick_bucket raises past it);
+    `data`: the data-axis size a decode's rows pad to (round_rows)."""
     counts = [int(f) for f in frame_counts]
     if grouping == "uniform":
         return [(pick_bucket(max(counts), frame_buckets), list(range(len(counts))))]
     if grouping == "packed":
-        return plan_packed_groups(counts, frame_buckets, round_rows=round_rows)
+        return plan_packed_groups(counts, frame_buckets, round_rows=lambda n: round_rows(n, data))
     if grouping == "bucketed":
         return group_by_bucket(counts, frame_buckets)
     raise ValueError(f"decode_grouping: {grouping!r}")

@@ -1,7 +1,7 @@
 """TorchVoice: a loaded voice and its batched synthesis path.
 
-Counterpart of piper_tpu/runtime/voice.py (TpuVoice), without a mesh.
-A batch of id sequences runs as
+Counterpart of piper_tpu/runtime/voice.py (TpuVoice). A batch of id
+sequences runs as
 
   1. Phase A: rows grouped by phoneme bucket (runtime/batching.py) and
      one encode per bucket (text encoder + duration predictor), each one
@@ -81,6 +81,20 @@ set (runtime/profiling.StageTimer), submit() times its phases (upload,
 encode, frames_wait, decode, pack, and fused: a plan graph's capture,
 copy-in and replay; copy).
 
+Mesh (TorchVoice(mesh=), TpuVoice's mesh, voice.py:128-135): a
+data-parallel voice over parallel/mesh.Mesh, one process per device.
+Every rank calls submit()/collect() with the same ids (SPMD) and every
+rank returns every row. Each encode group's rows, and each decode's,
+are padded to a multiple of the data size with copies of their first
+row (parallel/sharding.data_rows), each rank encodes or decodes its
+share, and the results are all-gathered over the data group (the pad
+rows dropped), the decode being vocode_data_parallel's split and gather
+around this voice's own windowed decode: so every rank holds the same
+frame counts and makes the same plan and the same estimator updates (a
+plan fixes the collectives every rank enters), and a row keeps the
+one-device bits. Dispatch fusion is off under a mesh, as in JAX
+(voice.py:600-614).
+
 Threads: a server calls one voice from many threads. The generator of
 unseeded requests' seeds is guarded by a lock, the graphs by theirs
 (runtime/graphs.py), the estimators by one lock (TpuVoice's
@@ -127,6 +141,7 @@ from ..models.vits import istft_generator as MB
 from ..models.vits import model as M
 from ..ops import prng
 from ..ops.cuda import vocoder as V
+from ..parallel import sharding as P
 from ..text.phonemes import phonemes_to_ids
 from ..text.phonemize import phonemize
 from ..weights.bridge import params_from_jax
@@ -368,6 +383,8 @@ def frame_noise(key: int, num_frames: int, channels: int) -> torch.Tensor:
 
 
 class TorchVoice:
+    mesh = None  # parallel.mesh.Mesh of a data-parallel voice (__init__'s `mesh`)
+
     def __init__(
         self,
         params,
@@ -383,6 +400,7 @@ class TorchVoice:
         estimator_cache: bool = False,
         cache_dir: Optional[Union[str, Path]] = None,
         dispatch_fusion: Optional[bool] = None,
+        mesh=None,
     ):
         """`params`: the voice's parameter tree in the JAX package's
         layouts (numpy leaves, as weights/native.load_native returns it).
@@ -418,7 +436,11 @@ class TorchVoice:
         path, so a fresh process starts on the speculative path.
         `dispatch_fusion` (TpuVoice's, voice.py:180-185; None means on):
         replay one CUDA graph for each speculative batch plan seen 3
-        times (FUSION_EXPIRY and FUSION_PLANS bound the captures)."""
+        times (FUSION_EXPIRY and FUSION_PLANS bound the captures); off
+        under a mesh.
+        `mesh`: a parallel.mesh.Mesh whose 'data' axis shares each
+        batch's rows (the module's docstring); the voice then runs on the
+        mesh's device, and every rank must call it alike."""
         if precision not in ("parity", "fast"):
             raise ValueError(f"precision: {precision!r}")
         if decode_grouping not in batching.DECODE_GROUPINGS:
@@ -427,7 +449,8 @@ class TorchVoice:
             raise ValueError(f"pack_total: {pack_total!r}")
         self.precision = precision
         self._check_wire(wire_format)
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = resolve_device(device if mesh is None else mesh.device)
         tf32_off()
         self.config = config
         self.model_cfg = model_cfg
@@ -482,7 +505,7 @@ class TorchVoice:
         # not captured yet (TpuVoice, voice.py:609-614), speculative
         # batches seen, and the plan graph not replayed since its capture
         # with the batch it was captured at
-        self._fusion = True if dispatch_fusion is None else bool(dispatch_fusion)
+        self._fusion = (True if dispatch_fusion is None else bool(dispatch_fusion)) and mesh is None
         self._fused_cache: dict = {}
         self._fused_counts: dict = {}
         self._fused_batches = 0
@@ -593,7 +616,7 @@ class TorchVoice:
             (fb, [fit[j] for j in rows])
             for fb, rows in batching.plan_decode_groups(
                 [frame_counts[j] for j in fit], self.decode_grouping,
-                self.frame_buckets,
+                self.frame_buckets, data=1 if self.mesh is None else self.mesh.shape["data"],
             )
         ] if fit else []
         return plan + [(int(f), [j]) for j, f in enumerate(frame_counts) if f > top]
@@ -725,19 +748,30 @@ class TorchVoice:
         exact path, re-decodes, the long form), without them every
         window of the bucket and the kernels at its width (the
         speculative path). Returns int16 audio (fast) or float32."""
+        W = WINDOW_FRAMES
+        if frames is None:
+            windows, width = [-(-fbucket // W)] * len(members), fbucket
+        else:
+            windows, width = [max(-(-f // W), 1) for f in frames], max(max(frames), 1)
+        n_all = len(members)
+        if self.mesh is not None:  # this rank's share, at the whole decode's width
+            mine = P.data_rows(n_all, self.mesh)
+            members, windows = [members[j] for j in mine], [windows[j] for j in mine]
         n = len(members)
         sel = self._rows_index(members, enc.m_p.shape[0])
         if sel is not None:
             enc = M.EncodeResult(*(t.index_select(0, sel) for t in enc))
         keys_t, scale_t = self._noise_inputs([rkeys[j] for j in members], syn)
-        W = WINDOW_FRAMES
-        if frames is None:
-            windows, width = [-(-fbucket // W)] * n, fbucket
-        else:
-            windows, width = [max(-(-f // W), 1) for f in frames], max(max(frames), 1)
         with self._span("decode"):
-            return self._audio_out(self._vocode(enc, fbucket, keys_t, scale_t, self._speaker(syn, n),
-                                                windows, width))
+            audio = self._audio_out(self._vocode(enc, fbucket, keys_t, scale_t, self._speaker(syn, n),
+                                                 windows, width))
+        if self.mesh is not None:
+            # a share of short rows runs fewer frame windows, and so the
+            # kernels at a narrower width (a row keeps its bits at any
+            # width): pad it to the decode's width before the gather
+            u = self.model_cfg.upsample_factor
+            audio = P.gather_rows(F.pad(audio, (0, width * u - audio.shape[1])), self.mesh, n_all)
+        return audio
 
     def _audio_out(self, audio: torch.Tensor) -> torch.Tensor:
         if self.precision == "fast":
@@ -958,7 +992,19 @@ class TorchVoice:
         slices of ENCODE_ROWS, each padded with copies of its first row,
         the pad rows dropped. Returns the EncodeResult of the real rows
         and their frame counts, on the device (read them with
-        _read_frames)."""
+        _read_frames). Under a mesh each rank encodes its share of the
+        rows and every rank gets all of them."""
+        if self.mesh is None:
+            return self._encode_rows(rows_ids, keys, bucket, syn)
+        n = len(rows_ids)
+        mine = P.data_rows(n, self.mesh)
+        enc, frames = self._encode_rows([rows_ids[j] for j in mine], [keys[j] for j in mine], bucket,
+                                        syn)
+        return (M.EncodeResult(*(P.gather_rows(t, self.mesh, n) for t in enc)),
+                P.gather_rows(frames, self.mesh, n))
+
+    def _encode_rows(self, rows_ids, keys, bucket: int, syn: SynthesisConfig):
+        """_encode on this process's rows."""
         _, length_scale, noise_w = self._scales(syn)
         outs = []
         for lo in range(0, len(rows_ids), ENCODE_ROWS):

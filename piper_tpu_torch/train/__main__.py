@@ -5,8 +5,20 @@ src/python/piper_train/__main__.py:15-147), with the JAX trainer's
 flags: it reads a preprocessed directory (config.json + dataset.jsonl,
 as piper_tpu.train.preprocess writes it), builds the model per quality
 preset and variant, and runs the GAN training loop (train/step.py) on
-one device: CUDA unless --device cpu is given; without a GPU it raises
-rather than falling back to the CPU.
+CUDA unless --device cpu is given; without a GPU it raises rather than
+falling back to the CPU.
+
+Data parallelism (--data-parallel N, the JAX trainer's): one process per
+device, started by torchrun (python -m torch.distributed.run
+--nproc-per-node N -m piper_tpu_torch.train ...), NCCL on CUDA and gloo
+with --device cpu. Every rank walks the same seeded batch order and
+trains on its rows of each batch through the sharded step
+(parallel/sharding.make_sharded_train_step: one global step, the same
+parameters on every rank); a batch whose rows do not divide over the
+ranks is skipped. N defaults to gcd(batch size, processes); ranks past N
+train nothing. Only rank 0 writes checkpoints, metrics.jsonl, exports and
+validation audio; every rank restores. One process is the one-device
+trainer.
 
 Where it differs from the JAX trainer:
 - checkpoints are torch.save files of the state (params, optimizers,
@@ -17,8 +29,6 @@ Where it differs from the JAX trainer:
   multi-speaker surgery, reference __main__.py:92-140);
 - --export-every writes native .npz voices (voice_<step>.npz) and the
   validation pass writes WAVs through the port's infer;
-- --data-parallel takes 1 (one device); the sharded step is ROADMAP
-  item 17;
 - --scan-steps K buffers K same-shape batches and runs them as K
   sequential steps (the JAX trainer's lax.scan over them is the same
   math), with the same keys, and flushes the batches left in the
@@ -33,21 +43,26 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import logging
+import math
 import time
 from pathlib import Path
 from typing import Any, Dict, List
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import ModelConfig, VoiceConfig
 from ..ops import prng
+from ..parallel.mesh import Mesh, initialize_multihost, make_mesh
+from ..parallel.sharding import make_sharded_train_step, shard_batch
 from ..runtime.voice import resolve_device, tf32_off
 from .dataset import BucketedLoader, load_dataset
-from .step import TrainState, init_params, leaves, make_train_state, train_step
+from .step import TrainState, init_params, leaves, make_train_state
 
 _LOGGER = logging.getLogger(__name__)
 
@@ -174,7 +189,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--resume-from-single-speaker-checkpoint",
                    help="Native .npz voice to initialize a multi-speaker run from")
     p.add_argument("--data-parallel", type=int,
-                   help="Devices on the data axis: 1 (the sharded step is not ported yet)")
+                   help="Processes on the data axis (default: gcd of the batch size and the "
+                        "processes torchrun started)")
     p.add_argument("--precision", choices=("fast", "parity"), default="fast",
                    help="fast: bfloat16 generator compute; parity: float32")
     p.add_argument("--scan-steps", type=int, default=1,
@@ -188,20 +204,38 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
-    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+def _barrier(mesh: Mesh) -> None:
+    """Every rank waits for rank 0's writes."""
+    if mesh.groups["data"] is not None:
+        dist.barrier(group=mesh.groups["data"])
 
 
 def main(argv=None) -> None:
     p = build_parser()
     args = p.parse_args(argv)
     logging.basicConfig(level=logging.DEBUG if args.debug else logging.INFO)
-    if args.data_parallel not in (None, 1):
-        raise ValueError(
-            f"--data-parallel {args.data_parallel}: the port trains on one device; the "
-            "sharded train step is ROADMAP item 17"
-        )
     device = resolve_device(args.device)
+    started = not dist.is_initialized()
+    initialize_multihost(device=device)  # a no-op outside torchrun
+    started = started and dist.is_initialized()
+    try:
+        _train(args, p, device)
+    finally:
+        if started:
+            dist.destroy_process_group()
+
+
+def _train(args, p: argparse.ArgumentParser, device: torch.device) -> None:
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    data_parallel = args.data_parallel or math.gcd(args.batch_size, world)
+    mesh = make_mesh(data=data_parallel, model=1, ranks=range(min(data_parallel, world)),
+                     device="cpu" if device.type == "cpu" else None)
+    if mesh is None:
+        _LOGGER.info("rank %s is outside the --data-parallel %s mesh: it trains nothing",
+                     dist.get_rank(), data_parallel)
+        return
+    device = mesh.device
+    lead = mesh.coords["data"] == 0  # the rank that writes
     tf32_off()
 
     dataset_dir = Path(args.dataset_dir)
@@ -241,6 +275,7 @@ def main(argv=None) -> None:
         _LOGGER.info("Resumed from step %s", start_step)
 
     dtype = torch.bfloat16 if args.precision == "fast" else torch.float32
+    step_fn = make_sharded_train_step(cfg, mesh, dtype=dtype)
     scan_k = max(1, args.scan_steps)
     key = prng.prng_key(args.seed + 1)
     step = start_step
@@ -254,13 +289,16 @@ def main(argv=None) -> None:
         nonlocal step, state, metrics
         prev_step = step
         for batch, k in zip(batches, keys):
-            state, metrics = train_step(state, _to_device(batch, device), k.to(device),
-                                        cfg=cfg, dtype=dtype)
+            state, metrics = step_fn(state, shard_batch(batch, mesh), k)
             step += 1
 
         def crossed(n):
             return n and step // n != prev_step // n
 
+        if not lead:
+            if crossed(args.checkpoint_steps):
+                _barrier(mesh)
+            return
         if crossed(args.log_steps):
             vals = {k: round(float(v), 5) for k, v in metrics.items() if k.startswith("loss")}
             vals.update(step=step, epoch=epoch, wall_s=round(time.perf_counter() - t_start, 1))
@@ -270,6 +308,7 @@ def main(argv=None) -> None:
                          vals["loss_disc_all"], vals["loss_mel"])
         if crossed(args.checkpoint_steps):
             save_checkpoint(ckpt_dir, state, step)
+            _barrier(mesh)
         if args.export_every and crossed(args.export_every):
             _export(ckpt_dir, state, cfg, step)
         if args.validate_steps and crossed(args.validate_steps):
@@ -286,9 +325,13 @@ def main(argv=None) -> None:
                 run([batch], [sub], epoch, metrics_file)
         pending.clear()
 
-    with open(ckpt_dir / "metrics.jsonl", "a", encoding="utf-8") as metrics_file:
+    metrics_out = (open(ckpt_dir / "metrics.jsonl", "a", encoding="utf-8") if lead
+                   else contextlib.nullcontext())
+    with metrics_out as metrics_file:
         for epoch in range(start_step // steps_per_epoch, args.max_epochs):
             for batch in loader:
+                if batch["ids"].shape[0] % mesh.size:
+                    continue  # its rows do not divide over the mesh
                 if scan_k > 1:
                     shape_key = tuple((k, v.shape) for k, v in sorted(batch.items()))
                     buf = pending.setdefault(shape_key, [])
@@ -309,8 +352,10 @@ def main(argv=None) -> None:
             if step >= args.max_steps:
                 break
 
-    save_checkpoint(ckpt_dir, state, step)
-    _export(ckpt_dir, state, cfg, step)
+    if lead:
+        save_checkpoint(ckpt_dir, state, step)
+        _export(ckpt_dir, state, cfg, step)
+    _barrier(mesh)
     _LOGGER.info("Done at step %s", step)
 
 

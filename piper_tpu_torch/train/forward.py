@@ -30,6 +30,7 @@ from ..models.vits.model import apply_decoder, speaker_embedding
 from ..ops import nn as tnn
 from ..ops import prng
 from ..ops.mas import maximum_path
+from .losses import WHOLE, BatchShard
 
 Params = Dict[str, Any]
 
@@ -63,11 +64,12 @@ def slice_segments(x: torch.Tensor, ids_str: torch.Tensor, segment_size: int) ->
     return torch.gather(x, 1, idx)
 
 
-def rand_slice_ids(key: torch.Tensor, lengths: torch.Tensor, segment_size: int) -> torch.Tensor:
+def rand_slice_ids(key: torch.Tensor, lengths: torch.Tensor, segment_size: int,
+                   shard: BatchShard = WHOLE) -> torch.Tensor:
     """Random valid segment starts (commons.py:56-63), from the JAX
-    package's uniform draw."""
+    package's uniform draw (at the whole batch's shape: `shard`'s rows)."""
     ids_max = torch.clamp(lengths.long() - segment_size + 1, min=1)
-    u = prng.uniform(key, tuple(lengths.shape))
+    u = shard.rows(prng.uniform(key, (shard.batch(lengths.shape[0]),)))
     return (u * ids_max).long()
 
 
@@ -95,8 +97,14 @@ def train_forward(
     rng: torch.Tensor,  # (2,) key (ops/prng.py) on the device
     dtype: torch.dtype = torch.float32,
     mas_noise_scale: Optional[torch.Tensor] = None,
+    shard: BatchShard = WHOLE,
 ) -> TrainForwardOut:
+    """`shard`: the rows of a data-parallel batch these are
+    (losses.BatchShard): every random draw is made at the whole batch's
+    shape and cut to them, and loss_dur is this shard's term of the whole
+    batch's."""
     r_post, r_sdp, r_slice, r_mas = prng.split(rng, 4)
+    b_all = shard.batch(ids.shape[0])
     seg_frames = cfg.segment_size // cfg.audio.hop_length
 
     x_mask = tnn.sequence_mask(id_lengths, ids.shape[1]).to(dtype)
@@ -105,7 +113,7 @@ def train_forward(
 
     x, m_p, logs_p = E.text_encoder_apply(params["enc_p"], ids, x_mask, cfg=cfg, dtype=dtype, g=g)
 
-    post_noise = prng.normal(r_post, (spec.shape[0], spec.shape[1], cfg.inter_channels)).to(dtype)
+    post_noise = shard.rows(prng.normal(r_post, (b_all, spec.shape[1], cfg.inter_channels))).to(dtype)
     z, m_q, logs_q = Q.posterior_encode(
         params["enc_q"], spec.to(dtype), y_mask, cfg=cfg, g=g, noise=post_noise
     )
@@ -115,7 +123,8 @@ def train_forward(
     neg_cent = prior_scores(z_p, m_p, logs_p)
     if cfg.mas_noise and mas_noise_scale is not None:
         # VITS2 §2.2: annealed Gaussian noise on the alignment scores
-        neg_cent = neg_cent + mas_noise_scale * prng.normal(r_mas, tuple(neg_cent.shape))
+        neg_cent = neg_cent + mas_noise_scale * shard.rows(
+            prng.normal(r_mas, (b_all,) + tuple(neg_cent.shape[1:])))
     attn = maximum_path(neg_cent, id_lengths, spec_lengths)  # (B, T_y, T_x)
     w = torch.sum(attn, dim=1)  # (B, T_x) durations
 
@@ -125,20 +134,20 @@ def train_forward(
     if cfg.use_sdp:
         nll = D.sdp_forward_nll(
             params["dp"], x, x_mask, w[..., None], cfg=cfg, g=g,
-            noise=prng.normal(r_sdp, (x.shape[0], x.shape[1], 2)),
+            noise=shard.rows(prng.normal(r_sdp, (b_all, x.shape[1], 2))),
         )
-        loss_dur = torch.sum(nll.float()) / torch.sum(x_mask.float())
+        loss_dur = shard.ratio(torch.sum(nll.float()), torch.sum(x_mask.float()))
         if cfg.use_dur_disc:
             # adversarial target: a sampled log-duration sequence, from
             # the detached text hidden (sdp_reverse, an inference path,
             # does not detach it; forward.py:135-146)
-            dur_noise = prng.normal(prng.fold_in(r_sdp, 1), (x.shape[0], x.shape[1], 2))
+            dur_noise = shard.rows(prng.normal(prng.fold_in(r_sdp, 1), (b_all, x.shape[1], 2)))
             logw_hat = D.sdp_reverse(
                 params["dp"], x.detach(), x_mask, cfg=cfg, noise_w=1.0, noise=dur_noise, g=g,
             )
     else:
         logw = D.dp_apply(params["dp"], x, x_mask, cfg=cfg, g=g)
-        loss_dur = torch.sum(torch.square(logw - logw_real)) / torch.sum(x_mask)
+        loss_dur = shard.ratio(torch.sum(torch.square(logw - logw_real)), torch.sum(x_mask))
         logw_hat = logw
 
     # ---- expand the prior by the path's per-frame phoneme index ----
@@ -147,7 +156,7 @@ def train_forward(
     logs_p_exp = torch.gather(logs_p, 1, frame_idx) * y_mask
 
     # ---- random segment + vocoder ----
-    ids_slice = rand_slice_ids(r_slice, spec_lengths, seg_frames)
+    ids_slice = rand_slice_ids(r_slice, spec_lengths, seg_frames, shard)
     z_slice = slice_segments(z, ids_slice, seg_frames)
     y_hat = apply_decoder(params, z_slice, None, cfg=cfg, g=g)
 

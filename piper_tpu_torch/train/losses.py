@@ -3,13 +3,77 @@
 Counterpart of piper_tpu/train/losses.py. Parity: reference losses.py —
 LSGAN discriminator/generator losses, feature matching (x2), masked KL.
 All reductions in float32.
+
+BatchShard is the data-parallel step's reduction hook
+(parallel/sharding.py): JAX's sharded step is one global step over the
+whole batch, and a rank of the port sees only its rows, so each loss
+term a rank builds is its share of the whole batch's term.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
+
+
+class BatchShard:
+    """The rows of a batch this process holds, share `index` of `count`
+    equal shares over the data-parallel process group `group`, and the
+    reductions that make its loss terms global: the terms of all the
+    shares sum to the whole batch's term. BatchShard() holds the whole
+    batch, and every method is then the identity (the one-device step
+    keeps its bits)."""
+
+    def __init__(self, group: Optional[dist.ProcessGroup] = None, index: int = 0, count: int = 1):
+        self.group, self.index, self.count = group, index, count
+
+    def batch(self, rows: int) -> int:
+        """The whole batch's rows, of a share's `rows`."""
+        return rows * self.count
+
+    def rows(self, x: torch.Tensor) -> torch.Tensor:
+        """This share's rows of x (a random draw at the whole batch's
+        shape, or the whole batch itself)."""
+        if self.count == 1:
+            return x
+        n = x.shape[0] // self.count
+        return x[self.index * n : (self.index + 1) * n]
+
+    def total(self, x: torch.Tensor) -> torch.Tensor:
+        """x summed over the shares (detached)."""
+        if self.count == 1:
+            return x
+        x = x.detach().clone()
+        dist.all_reduce(x, group=self.group)
+        return x
+
+    def ratio(self, num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
+        """This share's term of sum(num) / sum(den) over the whole batch:
+        its masked sum over the all-reduced denominator (the masks carry
+        no gradient). A mean of the shares' own ratios is not the whole
+        batch's once their masks differ."""
+        return num / self.total(den)
+
+    def share(self, mean: torch.Tensor) -> torch.Tensor:
+        """This share's term of a mean over equal-shape shares."""
+        return mean if self.count == 1 else mean / self.count
+
+    def total_grads(
+        self, grads: Sequence[Optional[torch.Tensor]], params: Sequence[torch.Tensor]
+    ) -> List[Optional[torch.Tensor]]:
+        """Each parameter's gradient summed over the shares (None counts
+        as zeros), in one all-reduce."""
+        if self.count == 1:
+            return list(grads)
+        flat = torch.cat([(torch.zeros_like(p) if g is None else g).reshape(-1)
+                          for g, p in zip(grads, params)])
+        dist.all_reduce(flat, group=self.group)
+        return [g.view_as(p) for g, p in zip(flat.split([p.numel() for p in params]), params)]
+
+
+WHOLE = BatchShard()
 
 
 def feature_loss(fmap_r, fmap_g) -> torch.Tensor:
@@ -50,10 +114,10 @@ def generator_loss(
     return loss, gen_losses
 
 
-def kl_loss(z_p, logs_q, m_p, logs_p, z_mask) -> torch.Tensor:
+def kl_loss(z_p, logs_q, m_p, logs_p, z_mask, shard: BatchShard = WHOLE) -> torch.Tensor:
     """Masked KL(q||p) between posterior and expanded prior
     (losses.py:43-58). Inputs (B, T, C); z_mask (B, T, 1)."""
     z_p, logs_q, m_p, logs_p, z_mask = (t.float() for t in (z_p, logs_q, m_p, logs_p, z_mask))
     kl = logs_p - logs_q - 0.5
     kl = kl + 0.5 * torch.square(z_p - m_p) * torch.exp(-2.0 * logs_p)
-    return torch.sum(kl * z_mask) / torch.sum(z_mask)
+    return shard.ratio(torch.sum(kl * z_mask), torch.sum(z_mask))

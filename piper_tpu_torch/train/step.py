@@ -155,12 +155,20 @@ def train_step(
     c_mel: float = 45.0,
     c_kl: float = 1.0,
     dtype: torch.dtype = torch.float32,
+    shard: LS.BatchShard = LS.WHOLE,
 ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
     """One GAN step, in place on `state` (returned for symmetry with the
     JAX package). batch: ids (B,T_x), id_lengths (B,), spec (B,T_y,F)
     float32, spec_lengths (B,), audio (B,T_samples) float32, sid optional
     (B,), on the device; rng: a (2,) key on the device. Returns the
-    losses as 0-dim device tensors (reading them waits for the step)."""
+    losses as 0-dim device tensors (reading them waits for the step).
+
+    `shard` (parallel/sharding.make_sharded_train_step): the batch is a
+    data-parallel share; each loss is built as its share's term, the
+    gradients are summed over the shares before either update (so a
+    grad_clip clamps the whole batch's gradient), and the losses
+    returned are the whole batch's. attn_durations and ids_slice stay
+    the share's rows."""
     a = cfg.audio
     seg_frames = cfg.segment_size // a.hop_length
     sid = batch.get("sid")
@@ -179,7 +187,7 @@ def train_step(
     out = train_forward(
         state.params_g, cfg=cfg, ids=batch["ids"], id_lengths=batch["id_lengths"],
         spec=batch["spec"], spec_lengths=batch["spec_lengths"], sid=sid, rng=rng,
-        dtype=dtype, mas_noise_scale=mas_noise_scale,
+        dtype=dtype, mas_noise_scale=mas_noise_scale, shard=shard,
     )
     y_hat = out.y_hat.float()  # (B, seg_samples)
     y_mel = slice_segments(mel_all, out.ids_slice, seg_frames)
@@ -188,10 +196,10 @@ def train_step(
                        cfg.segment_size)[..., 0]
 
     _, y_d_hat_g, fmap_r, fmap_g = DS.mpd_apply(state.params_d, y, y_hat)
-    loss_mel = torch.mean(torch.abs(y_mel - y_hat_mel)) * c_mel
-    loss_kl = LS.kl_loss(out.z_p, out.logs_q, out.m_p_exp, out.logs_p_exp, out.y_mask) * c_kl
-    loss_fm = LS.feature_loss(fmap_r, fmap_g)
-    loss_gen, _ = LS.generator_loss(y_d_hat_g)
+    loss_mel = shard.share(torch.mean(torch.abs(y_mel - y_hat_mel))) * c_mel
+    loss_kl = LS.kl_loss(out.z_p, out.logs_q, out.m_p_exp, out.logs_p_exp, out.y_mask, shard) * c_kl
+    loss_fm = shard.share(LS.feature_loss(fmap_r, fmap_g))
+    loss_gen = shard.share(LS.generator_loss(y_d_hat_g)[0])
     total = loss_gen + loss_fm + loss_mel + out.loss_dur + loss_kl
     metrics = {"loss_gen": loss_gen, "loss_fm": loss_fm, "loss_mel": loss_mel,
                "loss_dur": out.loss_dur, "loss_kl": loss_kl}
@@ -199,7 +207,7 @@ def train_step(
         # VITS2: the duration predictor also fools a per-position
         # discriminator on (text hidden, log-duration) pairs
         dd_g = DS.dur_disc_apply(state.params_d["dur_disc"], out.x_h, out.logw_hat, out.x_mask)
-        loss_dur_gen = torch.sum(torch.square(1.0 - dd_g) * out.x_mask) / torch.sum(out.x_mask)
+        loss_dur_gen = shard.ratio(torch.sum(torch.square(1.0 - dd_g) * out.x_mask), torch.sum(out.x_mask))
         total = total + loss_dur_gen
         metrics["loss_dur_gen"] = loss_dur_gen
     metrics["loss_gen_all"] = total
@@ -209,23 +217,25 @@ def train_step(
     # ---- discriminator loss and gradients, on the detached audio
     y, y_hat = y.detach(), y_hat.detach()
     y_d_hat_r, y_d_hat_g, _, _ = DS.mpd_apply(state.params_d, y, y_hat)
-    loss_disc, _, _ = LS.discriminator_loss(y_d_hat_r, y_d_hat_g)
+    loss_disc = shard.share(LS.discriminator_loss(y_d_hat_r, y_d_hat_g)[0])
     if cfg.use_dur_disc:
         x_h, x_mask = out.x_h, out.x_mask
         dd = state.params_d["dur_disc"]
         dd_r = DS.dur_disc_apply(dd, x_h, out.logw_real, x_mask)
         dd_f = DS.dur_disc_apply(dd, x_h, out.logw_hat.detach(), x_mask)
-        loss_disc = loss_disc + (
-            torch.sum((torch.square(1.0 - dd_r) + torch.square(dd_f)) * x_mask) / torch.sum(x_mask)
+        loss_disc = loss_disc + shard.ratio(
+            torch.sum((torch.square(1.0 - dd_r) + torch.square(dd_f)) * x_mask), torch.sum(x_mask)
         )
     params_d = leaves(state.params_d)
     grads_d = torch.autograd.grad(loss_disc, params_d, allow_unused=True)
 
-    state.opt_g.step(list(grads_g))
-    state.opt_d.step(list(grads_d))
+    state.opt_g.step(shard.total_grads(grads_g, params_g))
+    state.opt_d.step(shard.total_grads(grads_d, params_d))
     state.step += 1
     metrics["loss_disc_all"] = loss_disc
     metrics = {k: v.detach() for k, v in metrics.items()}
+    if shard.count > 1:  # every share's terms summed: the whole batch's losses
+        metrics = dict(zip(metrics, shard.total(torch.stack(list(metrics.values())))))
     metrics["attn_durations"] = out.attn_durations
     metrics["ids_slice"] = out.ids_slice
     return state, metrics

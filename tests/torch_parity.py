@@ -21,6 +21,14 @@ from piper_tpu_torch.config import ModelConfig as TModelConfig
 
 ATOL, RTOL = 2e-5, 1e-4
 
+# One intra-op thread per test process: the suite runs six xdist workers
+# on eight cores, and with conftest.py's OMP_NUM_THREADS=4 each worker's
+# PyTorch ran four, 24 threads in all; tests/test_torch_*.py took 928 s
+# under -n 6 that way and 265 s with one thread each (CHANGES.md, PR 16).
+# An xdist worker imports every test module when it collects, so this
+# sets it in every worker.
+torch.set_num_threads(1)
+
 # The medium preset's generator shape (rates 8-8-4, kernels 16-16-8,
 # resblock "2" with kernels 3-5-7) at narrow widths.
 TINY = ModelConfig(

@@ -123,15 +123,21 @@ def check_forward(cfg, seed=0):
         _rel(getattr(got, f), getattr(ref, f), 1e-4, f)
 
 
+def check_leaf(name, got, ref, steps, what):
+    """One parameter leaf after `steps` Adam steps against its reference,
+    at the bounds above."""
+    d = np.abs(np.asarray(got) - np.asarray(ref))
+    assert float(d.max()) <= 2.5 * LR * steps, f"{what} {name}: {float(d.max())}"
+    bad = int((d > 1e-5).sum())
+    if not name.endswith("attn.k.b"):
+        assert float(np.median(d)) <= 1e-7, f"{what} {name}: median {float(np.median(d))}"
+        assert bad <= max(1, 1e-3 * d.size), f"{what} {name}: {bad} of {d.size} differ by > 1e-5"
+
+
 def _check_params(jtree, ttree, before, steps, what):
     jflat = dict(iter_leaves(np_tree(jtree)))
     for name, t in iter_leaves(ttree):
-        d = np.abs(t.detach().numpy() - jflat[name])
-        assert float(d.max()) <= 2.5 * LR * steps, f"{what} {name}: {float(d.max())}"
-        bad = int((d > 1e-5).sum())
-        if not name.endswith("attn.k.b"):
-            assert float(np.median(d)) <= 1e-7, f"{what} {name}: median {float(np.median(d))}"
-            assert bad <= max(1, 1e-3 * d.size), f"{what} {name}: {bad} of {d.size} differ by > 1e-5"
+        check_leaf(name, t.detach().numpy(), jflat[name], steps, what)
     # and the step did move the parameters
     bflat = dict(iter_leaves(before))
     moved = sum(float(np.abs(t.detach().numpy() - bflat[name]).max()) > 0
