@@ -6,8 +6,9 @@
 Phases (any failure makes the exit code non-zero):
   1. the card (nvidia-smi name and power limit), torch and CUDA versions,
      the build of the CUDA kernels from piper_tpu_torch/csrc/, and the
-     SASS of both bf16 kernels (cuobjdump), which must hold HMMA
-     (tensor-core) instructions;
+     SASS of both bf16 kernels (cuobjdump), which must hold HGMMA (wgmma)
+     and the bulk copy that feeds their weight ring (UBLKCP or UTMALDG),
+     and no HMMA (mma.sync);
   2. each kernel against its plain PyTorch version on the card, at the
      medium voice's shapes with ragged lengths, in float32 and bfloat16,
      with its time beside the plain version's, a cuDNN composition of
@@ -322,22 +323,29 @@ def work_mrf(cfg, c, n_valid):
 
 
 def sass_tensor_cores(V) -> None:
-    """Phase 1: each bf16 kernel's SASS holds HMMA (mma.sync)."""
+    """Phase 1: the SASS of each bf16 kernel, at every product width it
+    is built for, holds HGMMA (wgmma) and the bulk copy that feeds its
+    weight ring (UBLKCP, or UTMALDG for a tensor-map load), and no HMMA
+    (mma.sync)."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    ops = ("HGMMA", "HMMA", "UBLKCP", "UTMALDG")
     for lib, kernel in (("mrf_fused", "mrf_fused_tc_kernel"), ("fused_upsample_mrf", "fused_stage_tc_kernel")):
         res = subprocess.run([tool, "-sass", str(V._lib_path(lib))], capture_output=True, text=True, timeout=300)
         funcs, name = {}, None
         for line in res.stdout.splitlines():
             if "Function :" in line:
                 name = line.split("Function :", 1)[1].strip()
-                funcs[name] = 0
-            elif name is not None and "HMMA" in line:
-                funcs[name] += 1
+                funcs[name] = dict.fromkeys(ops, 0)
+            elif name is not None:
+                for op in ops:
+                    funcs[name][op] += op in line
         for fn, n in funcs.items():
-            print(f"  SASS {fn}: {n} HMMA")
+            print(f"  SASS {fn}: " + ", ".join(f"{n[op]} {op}" for op in ops))
         tc = [n for fn, n in funcs.items() if kernel in fn]
-        check(res.returncode == 0 and len(tc) == 1 and tc[0] > 0,
-              f"bf16 {lib} ({kernel}) runs mma.sync: HMMA in its SASS")
+        check(res.returncode == 0 and len(tc) > 0
+              and all(n["HGMMA"] > 0 and n["UBLKCP"] + n["UTMALDG"] > 0 and n["HMMA"] == 0 for n in tc),
+              f"bf16 {lib} ({kernel}, {len(tc)} widths) runs wgmma fed by bulk copies: HGMMA and "
+              f"UBLKCP/UTMALDG in its SASS, no HMMA")
 
 
 def phase_kernels(cfg, params_np, peaks, frames=(403, 396, 5), dtypes=None):
@@ -374,7 +382,7 @@ def phase_kernels(cfg, params_np, peaks, frames=(403, 396, 5), dtypes=None):
             err0 = (got.float() - ref.float()).abs().max().item()
             ok0 = bool(torch.allclose(got.float(), ref.float(), atol=atol, rtol=rtol))
             check(ok0, f"mrf_fused stage 0 {dname} (frames {frames}): max_abs_err {err0:.3e} (atol {atol}, rtol {rtol})")
-            ms0 = time_ms(lambda: V.mrf_fused(x0, lens0, pw, pb, **kw))
+            ms0 = time_ms(lambda: V.mrf_fused(x0, lens0, pw, pb, **kw), reps=50, warmup=5)
             plain0 = time_ms(lambda: V.mrf_fused_plain(x0, lens0, pw, pb, **kw), reps=3)
             lib0 = time_ms(lambda: lib_mrf(dec["resblocks"][0], x0, lens0, cfg))
             c0 = x0.shape[1]
@@ -409,8 +417,8 @@ def phase_kernels(cfg, params_np, peaks, frames=(403, 396, 5), dtypes=None):
             err2 = (w_k.float() - w_p.float()).abs().max().item()
             ok2 = bool(torch.allclose(w_k.float(), w_p.float(), atol=atol, rtol=rtol))
             check(ok2, f"fused_upsample_mrf stages 1->2 {dname} (frames {frames}): max_abs_err {err2:.3e}")
-            ms1 = time_ms(lambda: stage1(V.fused_upsample_mrf, x1))
-            ms2 = time_ms(lambda: stage2(V.fused_upsample_mrf, y_k))
+            ms1 = time_ms(lambda: stage1(V.fused_upsample_mrf, x1), reps=50, warmup=5)
+            ms2 = time_ms(lambda: stage2(V.fused_upsample_mrf, y_k), reps=50, warmup=5)
             plain12 = time_ms(lambda: stage2(V.fused_upsample_mrf_plain, stage1(V.fused_upsample_mrf_plain, x1)), reps=3)
 
             def lib1():
@@ -3105,7 +3113,9 @@ def measure(root: str) -> int:
     by method; a warm batch (16 rows) with its device time by kernel;
     after warmup((1, 16), full=True), the serving window of phase 4 under
     the server's default grouping with submit's host time by method, its
-    profiled rerun's idle share, and STREAMS warm /streams."""
+    profiled rerun's idle share, and STREAMS warm /streams. Also the two
+    bf16 kernels' device times in the warm batch, and each alone at the
+    kernel phase's rows and at the long row's 11,938 frames."""
     import urllib.parse
 
     import numpy as np
@@ -3167,7 +3177,17 @@ def measure(root: str) -> int:
         "device_ms": sum(e.self_device_time_total for e in events) / 1e3,
         "top_kernels_ms": [[e.key[:60], e.self_device_time_total / 1e3, e.count] for e in
                            sorted(events, key=lambda e: -e.self_device_time_total)[:8]],
+        "kernels_ms": {k: sum(e.self_device_time_total for e in events if k in e.key) / 1e3
+                       for k in ("mrf_fused_tc_kernel", "fused_stage_tc_kernel")},
     }
+    # both bf16 kernels alone at the kernel phase's rows and at the long
+    # row's length (phase 2's timings: kernel, cuDNN composition, bound)
+    peaks = peaks_for(torch.cuda.get_device_name(0))[1]
+    out["kernels"] = {}
+    for label, frames in (("kernel_phase", (403, 396, 5)), ("long_row", (11938,))):
+        res = phase_kernels(cfg, params_np, peaks, frames=frames, dtypes=(torch.bfloat16,))
+        out["kernels"][label] = {k: {f: r[f] for f in ("ms", "library_ms", "bound_ms", "max_abs_err")}
+                                 for (k, _), r in res.items()}
     # the transfer's bytes per audio-second of the warm batch on each wire
     wires = {}
     for wire in ("int16", "mulaw") if hasattr(fast, "set_wire_format") else ("int16",):

@@ -1,38 +1,140 @@
-// Tensor-core building blocks of the two bf16 vocoder kernels
-// (mrf_fused.cu, fused_upsample_mrf.cu): ldmatrix, mma.sync m16n8k16
-// (bf16 in, f32 accumulators), cp.async, one implicit-GEMM conv over a
-// window held position-major in shared memory, and the MRF chain that
-// both kernels run on such a window.
+// Hopper tensor-core building blocks of the two bf16 vocoder kernels
+// (mrf_fused.cu, fused_upsample_mrf.cu): warpgroup products (wgmma
+// m64nNk16, bf16 in, f32 sums, A from registers, B from a shared-memory
+// matrix descriptor), ldmatrix for A, mbarriers and the bulk copy of the
+// Tensor Memory Accelerator for B, a ring of weight stages fed by those
+// copies, one implicit-GEMM conv over a window held position-major in
+// shared memory, and the MRF chain that both kernels run on such a window.
 //
-// A warp phase is written as
-//     PT_WARPS(wp) { ...warp-uniform code...  PT_LANES(wp, tid) { ...lane... } }
+// A block is two consumer warpgroups, which run the products, and one
+// producer warpgroup, one thread of which streams the weights (the ring
+// below). A consumer warpgroup phase is written as
+//     PT_GROUPS(wg) { ... PT_GROUP_WARPS(wg, wp) { ... PT_LANES(wp, tid) { ...lane... } } }
 // and a value that each thread holds in a register is a Regs<T>, indexed
-// by the thread's tid. On the GPU PT_WARPS and PT_LANES run their bodies
-// once (wp = threadIdx.x / 32, tid = threadIdx.x) and Regs<T> is one
-// register. With -DPT_HOST_EMULATION, PT_WARPS loops over the block's
-// warps, PT_LANES over the warp's 32 lanes, Regs<T> holds one T per
-// thread of the block, and the warp-collective instructions are computed
-// from the documented fragment layouts of the PTX ISA (ldmatrix, and
-// mma.m16n8k16 with .bf16 operands). So the host build checks the kernel's
-// addressing, shifts, padding and fragment-to-(row, column) maps.
+// by the thread's tid. On the GPU these run their bodies once (wg =
+// threadIdx.x / 128, wp = threadIdx.x / 32, tid = threadIdx.x) and Regs<T>
+// is one register. With -DPT_HOST_EMULATION they loop over the consumer
+// warpgroups, the group's warps and the warp's lanes, Regs<T> holds one T
+// per consumer thread, the producer's copies are issued where a consumer
+// waits for them, and the asynchronous instructions are emulated
+// from the PTX ISA: ldmatrix from its fragment layout; wgmma from its A
+// register fragments, its B matrix descriptor (start address, leading and
+// stride byte offsets, swizzle mode, decoded from the 64-bit value) and its
+// accumulator layout, executed when wgmma.wait_group retires its group
+// (a wgmma without a fence before it, or whose A registers change before
+// it retires, is a fault); the bulk copy at issue, counting its bytes on
+// the mbarrier; an mbarrier's phases from its arrivals and transaction
+// bytes (a wait on a phase that has not completed is a fault). So the host
+// build checks the kernels' addressing, shifts, descriptors, lane maps and
+// ring protocol; a fault makes the emulated entry point return -4.
 #pragma once
 
 #include "mrf_common.cuh"
 
 #ifdef PT_HOST_EMULATION
+#include <vector>
+#define PT_CTHREADS(tid) PT_THREADS(tid)
+#define PT_CSYNC() ((void)0)
 #define PT_HD inline
-#define PT_WARPS(wp) for (int wp = 0; wp < pt::kWarps; ++wp)
+#define PT_GROUPS(wg) for (int wg = 0; wg < pt::kGroups; ++wg)
+#define PT_GROUP_WARPS(wg, wp) for (int wp = (wg) * 4; wp < (wg) * 4 + 4; ++wp)
 #define PT_LANES(wp, tid) for (int tid = (wp) * 32; tid < (wp) * 32 + 32; ++tid)
 #else
+// the consumer threads (the kThreads of the two warpgroups that run the
+// products) and their own barrier: the producer warpgroup of the bf16
+// kernels takes part in neither
+#define PT_CTHREADS(tid) for (int tid = threadIdx.x, pt_conce_ = threadIdx.x < pt::kThreads; pt_conce_; pt_conce_ = 0)
+#define PT_CSYNC() asm volatile("bar.sync 1, %0;\n" ::"n"(pt::kThreads) : "memory")
 #define PT_HD __host__ __device__ __forceinline__
-#define PT_WARPS(wp) for (int wp = threadIdx.x >> 5, pt_wonce_ = 1; pt_wonce_; pt_wonce_ = 0)
+// (the warpgroup index through a shuffle: the compiler then knows it is
+// uniform across the warp, so branches on it around wgmma do not make it
+// serialise the products)
+#define PT_GROUPS(wg) \
+  for (int wg = __shfl_sync(0xffffffffu, (int)(threadIdx.x >> 7), 0), pt_gonce_ = 1; pt_gonce_; pt_gonce_ = 0)
+#define PT_GROUP_WARPS(wg, wp) for (int wp = threadIdx.x >> 5, pt_wonce_ = 1; pt_wonce_; pt_wonce_ = 0)
 #define PT_LANES(wp, tid) for (int tid = threadIdx.x, pt_lonce_ = 1; pt_lonce_; pt_lonce_ = 0)
 #endif
 
 namespace pt {
 
-constexpr int kWarps = kThreads / 32;
-constexpr int kMI = 12;  // (16-row, 16-column) output tiles one warp holds in a GEMM
+constexpr int kWarps = kThreads / 32;    // consumer warps: 8
+constexpr int kGroups = kThreads / 128;  // consumer warpgroups: 2
+// A bf16 block is the two consumer warpgroups and one producer
+// warpgroup, whose first thread issues the weight ring's bulk copies; the
+// producer gives its registers to the consumers (setmaxnreg): 256 x 232 +
+// 128 x 40 = 64,512 of the SM's 65,536.
+constexpr int kTcThreads = kThreads + 128;
+constexpr int kConsumerRegs = 232, kProducerRegs = 40;
+constexpr int kSmemLimit = 232448;       // shared memory one block may use (H100)
+constexpr int kMaxChunks = 4;            // 16-channel chunks of one weight stage
+constexpr int kRingMin = 3, kRingMax = 8;  // weight stages in the ring: as many as fit
+constexpr int kBarBytes = 128;           // the ring's mbarriers (2 per stage, 8 bytes each)
+constexpr int kBatch = 8;                // elements a thread loads before it stores them (copy loops)
+
+// Output width of the warpgroup product: the conv's padded output
+// channels rounded up to a power of two, 16..256 (0: too wide).
+PT_HD int npad(int cp) {
+  int n = 16;
+  while (n < cp) n *= 2;
+  return n <= 256 ? n : 0;
+}
+// 64-row output tiles one warpgroup holds at once (their f32 sums, N/2
+// registers a tile per thread, stay in registers for a whole conv).
+PT_HD constexpr int mt_per_group(int n) { return n >= 256 ? 1 : n >= 128 ? 2 : n >= 64 ? 3 : 4; }
+// Stages of slot bytes that fit beside `windows` bytes of windows: as
+// many as fit, from kRingMin to kRingMax.
+PT_HD int ring_slots(size_t windows, int slot) {
+  int n = kRingMin;
+  while (n < kRingMax && kBarBytes + (size_t)(n + 1) * slot + windows <= (size_t)kSmemLimit) ++n;
+  return n;
+}
+
+// Input-channel rows of one weight stage (one tap's slice, or a piece of
+// it): 16, 32 or 64 (1, 2 or kMaxChunks chunks), at most 16 KB, dividing k.
+PT_HD int step_rows(int k, int n) {
+  int r = 16 * kMaxChunks;
+  while (r > 16 && (r * n * 2 > 16384 || k % r)) r /= 2;
+  return r;
+}
+// Taps of one weight stage: where a whole tap is one step of fewer than
+// kMaxChunks chunks (k = 16 or 32) and the product is at most 64 wide,
+// several taps, up to kMaxChunks chunks and 16 KB together; else 1 (a
+// stage is then one step of a tap). (The widest products keep the fewest
+// step shapes: their accumulators leave no registers for more.)
+PT_HD int stage_taps(int k, int n) {
+  if (n > 64 || step_rows(k, n) != k) return 1;
+  int t = 16 * kMaxChunks / k;
+  while (t > 1 && t * k * n * 2 > 16384) --t;
+  return t;
+}
+
+// Runs `body` (statements that use the constant N) with N = np, the
+// warpgroup product's width, or `otherwise` if np is not one of 16..256.
+#define PT_WITH_WIDTH(np, body, otherwise) \
+  switch (np) {                            \
+    case 16: {                             \
+      constexpr int N = 16;                \
+      body;                                \
+    } break;                               \
+    case 32: {                             \
+      constexpr int N = 32;                \
+      body;                                \
+    } break;                               \
+    case 64: {                             \
+      constexpr int N = 64;                \
+      body;                                \
+    } break;                               \
+    case 128: {                            \
+      constexpr int N = 128;               \
+      body;                                \
+    } break;                               \
+    case 256: {                            \
+      constexpr int N = 256;               \
+      body;                                \
+    } break;                               \
+    default:                               \
+      otherwise;                           \
+  }
 
 template <typename T>
 struct Regs {
@@ -50,11 +152,22 @@ struct Regs {
 struct U4 {
   uint32_t x[4];
 };
-struct F4 {
-  float x[4];
+// One thread's part of a warpgroup product's m64nN f32 accumulators.
+template <int N>
+struct Acc {
+  float x[N / 2];
 };
 
 #ifdef PT_HOST_EMULATION
+// The emulated block's shared memory (addresses are offsets into it) and
+// the first fault the emulation met (nullptr: none).
+inline char* g_smem = nullptr;
+inline size_t g_smem_bytes = 0;
+inline const char* g_fault = nullptr;
+inline void fault(const char* why) {
+  if (!g_fault) g_fault = why;
+}
+inline uint32_t smem_addr(const void* p) { return (uint32_t)((const char*)p - g_smem); }
 static inline uint32_t pack2(pt_bf16 lo, pt_bf16 hi) { return uint32_t(lo.bits) | (uint32_t(hi.bits) << 16); }
 static inline float half_f(uint32_t r, int hi) { return pt_bf16_to_float(pt_bf16{uint16_t(hi ? r >> 16 : r)}); }
 #else
@@ -63,7 +176,7 @@ PT_DEVICE uint32_t smem_addr(const void* p) { return (uint32_t)__cvta_generic_to
 
 // ldmatrix.x4: lane l gives the address of row (l & 7) of 8x8 matrix l >> 3;
 // register i of lane l receives elements (l >> 2, 2(l & 3) + {0, 1}) of
-// matrix i. With .trans it receives elements (2(l & 3) + {0, 1}, l >> 2).
+// matrix i.
 PT_DEVICE void ldsm_x4(Regs<U4>& d, const Regs<const pt_bf16*>& p, int wp) {
 #ifdef PT_HOST_EMULATION
   for (int l = 0; l < 32; ++l)
@@ -79,212 +192,642 @@ PT_DEVICE void ldsm_x4(Regs<U4>& d, const Regs<const pt_bf16*>& p, int wp) {
 #endif
 }
 
-PT_DEVICE void ldsm_x4_trans(Regs<U4>& d, const Regs<const pt_bf16*>& p, int wp) {
-#ifdef PT_HOST_EMULATION
-  for (int l = 0; l < 32; ++l)
-    for (int i = 0; i < 4; ++i) {
-      const pt_bf16* r0 = p[wp * 32 + i * 8 + 2 * (l & 3)];
-      const pt_bf16* r1 = p[wp * 32 + i * 8 + 2 * (l & 3) + 1];
-      d[wp * 32 + l].x[i] = pack2(r0[l >> 2], r1[l >> 2]);
-    }
-#else
-  U4& r = d[0];
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r.x[0]), "=r"(r.x[1]), "=r"(r.x[2]), "=r"(r.x[3])
-               : "r"(smem_addr(p[0])));
-#endif
-}
+// ---------------------------------------------------------------------------
+// mbarriers and the bulk copy
+// ---------------------------------------------------------------------------
 
-// c += A (16x16, row) * B (16x8, col), f32 accumulators. Fragments (g =
-// lane >> 2, t = lane & 3): a.x = {(g, 2t..), (g+8, 2t..), (g, 2t+8..),
-// (g+8, 2t+8..)}; B is b.x[2j] = rows (2t, 2t+1), b.x[2j+1] = rows
-// (2t+8, 2t+9), column g; c.x = {(g, 2t), (g, 2t+1), (g+8, 2t), (g+8, 2t+1)}.
-PT_DEVICE void mma_bf16(Regs<F4>& c, const Regs<U4>& a, const Regs<U4>& b, int j, int wp) {
 #ifdef PT_HOST_EMULATION
-  float A[16][16], B[16][8];
-  for (int l = 0; l < 32; ++l) {
-    const int g = l >> 2, t = l & 3;
-    const U4& ra = a[wp * 32 + l];
-    const U4& rb = b[wp * 32 + l];
-    for (int q = 0; q < 2; ++q) {
-      A[g][2 * t + q] = half_f(ra.x[0], q);
-      A[g + 8][2 * t + q] = half_f(ra.x[1], q);
-      A[g][2 * t + 8 + q] = half_f(ra.x[2], q);
-      A[g + 8][2 * t + 8 + q] = half_f(ra.x[3], q);
-      B[2 * t + q][g] = half_f(rb.x[2 * j], q);
-      B[2 * t + 8 + q][g] = half_f(rb.x[2 * j + 1], q);
-    }
-  }
-  for (int l = 0; l < 32; ++l) {
-    const int g = l >> 2, t = l & 3;
-    F4& rc = c[wp * 32 + l];
-    for (int e = 0; e < 4; ++e) {
-      const int row = g + 8 * (e >> 1), col = 2 * t + (e & 1);
-      float acc = rc.x[e];
-      for (int k = 0; k < 16; ++k) acc = fmaf(A[row][k], B[k][col], acc);
-      rc.x[e] = acc;
-    }
-  }
-#else
-  F4& r = c[0];
-  const U4& ra = a[0];
-  const U4& rb = b[0];
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(r.x[0]), "+f"(r.x[1]), "+f"(r.x[2]), "+f"(r.x[3])
-      : "r"(ra.x[0]), "r"(ra.x[1]), "r"(ra.x[2]), "r"(ra.x[3]), "r"(rb.x[2 * j]), "r"(rb.x[2 * j + 1]));
-#endif
-}
-
-// cp.async: 16- or 8-byte copies from device memory into shared memory,
-// in flight until cp_async_wait_all (the host build copies at once).
-PT_DEVICE void cp_async16(void* dst, const void* src) {
-#ifdef PT_HOST_EMULATION
-  std::memcpy(dst, src, 16);
-#else
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src));
-#endif
-}
-PT_DEVICE void cp_async8(void* dst, const void* src) {
-#ifdef PT_HOST_EMULATION
-  std::memcpy(dst, src, 8);
-#else
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(smem_addr(dst)), "l"(src));
-#endif
-}
-PT_DEVICE void cp_async_commit() {
-#ifndef PT_HOST_EMULATION
-  asm volatile("cp.async.commit_group;\n" ::);
-#endif
-}
-PT_DEVICE void cp_async_wait_all() {
-#ifndef PT_HOST_EMULATION
-  asm volatile("cp.async.wait_group 0;\n" ::);
-#endif
-}
-
-PT_DEVICE void zero16(void* p) {
-#ifdef PT_HOST_EMULATION
-  std::memset(p, 0, 16);
-#else
-  *reinterpret_cast<uint4*>(p) = make_uint4(0, 0, 0, 0);
-#endif
-}
-
-// One weight slice, (k_real, n_real) row-major in device memory, into
-// shared rows of stride ldw. n_real % 4 == 0 (the wrapper checks it);
-// 16-byte copies where n_real % 8 == 0.
-PT_DEVICE void fetch_slice(int tid, pt_bf16* dst, int ldw, const pt_bf16* src, int k_real, int n_real) {
-  if (n_real % 8 == 0) {
-    const int per = n_real / 8;
-    for (int e = tid; e < k_real * per; e += kThreads) {
-      const int r = e / per, c = (e - r * per) * 8;
-      cp_async16(dst + (size_t)r * ldw + c, src + (size_t)r * n_real + c);
-    }
-  } else {
-    const int per = n_real / 4;
-    for (int e = tid; e < k_real * per; e += kThreads) {
-      const int r = e / per, c = (e - r * per) * 4;
-      cp_async8(dst + (size_t)r * ldw + c, src + (size_t)r * n_real + c);
-    }
-  }
-}
-
-// One conv as an implicit GEMM on the tensor cores:
-//   out[r][n] = sum_tap sum_k A[r + tap*a_step + a_shift][k] * W_tap[k][n]
-// for output rows r in [row0, row0 + n_rows) and columns n < n_real. A is
-// position-major bf16 in shared memory (row stride lda, zero columns past
-// the real K); W_tap is a (k_real, n_real) slice of device memory at
-// w + tap*w_tap. Each step stages step_rows rows (a multiple of 16) of one
-// tap's slice into one of two shared buffers (wbuf, rows of ldw,
-// wbuf_stride apart) with cp.async while the previous step's products
-// run; a step_rows of at least K stages whole taps. Warp wp owns the
-// (16-row, 16-column) tiles wp, wp + kWarps, ... (at most kMI) and keeps
-// their f32 sums in registers; sums run over taps, then 16-channel
-// chunks, so each output element's order depends neither on the tile nor
-// on step_rows. A tile may read up to 15 rows past row0 + n_rows; those
-// rows are discarded.
-// epi(r, n, v0, v1) receives columns n, n+1 of row r.
-struct Gemm {
-  const pt_bf16* a;
-  int lda, row0, n_rows, a_step, a_shift, k_chunks, n_pairs;
-  const pt_bf16* w;
-  size_t w_tap;
-  int k_real, n_real, n_taps;
+// An emulated mbarrier in its 8 bytes: arrivals still pending in this
+// phase, the arrival count (bit 15: the phase), transaction bytes pending.
+struct EmuBar {
+  uint16_t pending, count_phase;
+  int32_t tx;
 };
+static_assert(sizeof(EmuBar) == 8, "an mbarrier is 8 bytes");
+inline EmuBar* emu_bar(uint64_t* b) { return reinterpret_cast<EmuBar*>(b); }
+inline void emu_bar_settle(EmuBar* e) {
+  if (e->pending == 0 && e->tx == 0) {
+    e->count_phase ^= 0x8000;
+    e->pending = e->count_phase & 0x7fff;
+  }
+}
+#endif
 
-template <typename Epi>
-PT_DEVICE void gemm(const Gemm& g, pt_bf16* wbuf, int ldw, int step_rows, size_t wbuf_stride, Epi epi) {
-  const int step_chunks = step_rows / 16;
-  const int n_items = (g.n_rows + 15) / 16 * g.n_pairs;
-  const int n_pieces = (g.k_chunks + step_chunks - 1) / step_chunks;  // steps per tap
-  const int n_steps = g.n_taps * n_pieces;
-  auto fetch = [&](int tid, int st) {
-    const int kk = st / n_pieces, k0 = (st - kk * n_pieces) * step_rows;
-    fetch_slice(tid, wbuf + (st & 1) * wbuf_stride, ldw, g.w + kk * g.w_tap + (size_t)k0 * g.n_real,
-                min(step_rows, g.k_real - k0), g.n_real);
-  };
-  Regs<F4> acc[kMI][2];
-  PT_WARPS(wp) {
-#pragma unroll
-    for (int m = 0; m < kMI; ++m)
-      for (int j = 0; j < 2; ++j) PT_LANES(wp, tid) for (int e = 0; e < 4; ++e) acc[m][j][tid].x[e] = 0.f;
+PT_DEVICE void mbar_init(uint64_t* bar, int count) {
+#ifdef PT_HOST_EMULATION
+  *emu_bar(bar) = EmuBar{uint16_t(count), uint16_t(count), 0};
+#else
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count) : "memory");
+#endif
+}
+
+// Makes the initialised barriers visible to the async proxy (bulk copies).
+PT_DEVICE void mbar_fence_init() {
+#ifndef PT_HOST_EMULATION
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+#endif
+}
+
+PT_DEVICE void mbar_arrive(uint64_t* bar) {
+#ifdef PT_HOST_EMULATION
+  EmuBar* e = emu_bar(bar);
+  if (e->pending == 0) return fault("mbarrier: more arrivals than its count in one phase");
+  --e->pending;
+  emu_bar_settle(e);
+#else
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+#endif
+}
+
+PT_DEVICE void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+#ifdef PT_HOST_EMULATION
+  emu_bar(bar)->tx += (int32_t)bytes;
+  mbar_arrive(bar);
+#else
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(bytes)
+               : "memory");
+#endif
+}
+
+#ifdef PT_HOST_EMULATION
+// Whether the barrier's phase of this parity has completed (no wait).
+inline bool mbar_test(uint64_t* bar, uint32_t parity) { return (emu_bar(bar)->count_phase >> 15) != parity; }
+#endif
+
+// Wait until the barrier's phase of this parity has completed.
+PT_DEVICE void mbar_wait(uint64_t* bar, uint32_t parity) {
+#ifdef PT_HOST_EMULATION
+  if ((emu_bar(bar)->count_phase >> 15) == parity)
+    fault("mbarrier wait on a phase that has not completed (arrivals or transaction bytes missing)");
+#else
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+#endif
+}
+
+// One bulk copy of the Tensor Memory Accelerator, device memory -> shared
+// memory, completing `bytes` transaction bytes on `bar`. Both addresses on
+// 16 bytes, bytes a multiple of 16.
+PT_DEVICE void bulk_copy(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
+#ifdef PT_HOST_EMULATION
+  const uint32_t d = smem_addr(dst);
+  if ((d | bytes) % 16 || (uintptr_t)src % 16 || d + (size_t)bytes > g_smem_bytes)
+    return fault("bulk copy: misaligned, or outside shared memory");
+  std::memcpy(dst, src, bytes);
+  EmuBar* e = emu_bar(bar);
+  e->tx -= (int32_t)bytes;
+  if (e->tx < 0) return fault("bulk copy: more bytes than the mbarrier expects");
+  emu_bar_settle(e);
+#else
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(bytes), "r"(smem_addr(bar))
+               : "memory");
+#endif
+}
+
+// ---------------------------------------------------------------------------
+// wgmma: D (64 x N, f32) += A (64 x 16, bf16, registers) * B (16 x N, bf16,
+// shared memory)
+// ---------------------------------------------------------------------------
+
+// Matrix descriptor of a K-major B without swizzle: 8 x 8 core matrices of
+// 128 contiguous bytes (row n of a core matrix: 8 input channels); `lbo`
+// bytes between core matrices along K, `sbo` bytes between core matrices
+// along N. Fields: start address >> 4 (bits 0-13), lbo >> 4 (16-29), sbo >> 4
+// (32-45), base offset 0 (49-51), layout 0 = no swizzle (62-63).
+PT_HD uint64_t wgmma_desc(uint32_t saddr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32);
+}
+
+#ifdef PT_HOST_EMULATION
+// Byte address the descriptor gives element (k, n) of a K-major B
+// (k < 16): no swizzle, or 128/64/32-byte swizzle (rows of that many bytes
+// in 8-row atoms, the 16-byte unit XORed with the row within the atom).
+inline bool desc_addr(uint64_t desc, int k, int n, uint32_t* out) {
+  const uint32_t start = uint32_t(desc & 0x3FFF) << 4, lbo = uint32_t((desc >> 16) & 0x3FFF) << 4,
+                 sbo = uint32_t((desc >> 32) & 0x3FFF) << 4, base = uint32_t((desc >> 49) & 7),
+                 layout = uint32_t(desc >> 62);
+  if (base) return false;
+  if (layout == 0) {
+    *out = start + (n >> 3) * sbo + (k >> 3) * lbo + (n & 7) * 16 + (k & 7) * 2;
+    return true;
   }
-  PT_THREADS(tid) {
-    fetch(tid, 0);
-    cp_async_commit();
-  }
-  for (int st = 0; st < n_steps; ++st) {
-    PT_THREADS(tid) { cp_async_wait_all(); }
-    PT_SYNC();  // step st has landed; every warp is done with step st - 1
-    if (st + 1 < n_steps) {
-      PT_THREADS(tid) {
-        fetch(tid, st + 1);
-        cp_async_commit();
+  const int bits = layout == 1 ? 3 : layout == 2 ? 2 : 1;  // 128B, 64B, 32B
+  const uint32_t lin = start + (n >> 3) * sbo + (n & 7) * (16u << bits) + k * 2;
+  *out = lin ^ (((lin >> 7) & ((1u << bits) - 1)) << 4);
+  return true;
+}
+
+// The warpgroups' issued wgmmas, retired in order by wgmma_wait.
+struct EmuMma {
+  void* d;
+  const Regs<U4>* a;
+  U4 a_issued[128];
+  uint64_t desc;
+  int wg;
+  void (*run)(const EmuMma&);
+};
+inline std::vector<EmuMma> g_mma[kGroups];
+inline std::vector<int> g_mma_groups[kGroups];  // ops per committed group, oldest first
+inline int g_mma_open[kGroups];                 // ops issued since the last commit
+inline bool g_mma_fenced[kGroups];
+
+template <int N>
+void emu_wgmma_run(const EmuMma& op) {
+  Regs<Acc<N>>& d = *static_cast<Regs<Acc<N>>*>(op.d);
+  float A[64][16];
+  static float B[16][256];
+  for (int w = 0; w < 4; ++w)
+    for (int l = 0; l < 32; ++l) {
+      const int tid = op.wg * 128 + w * 32 + l, g = l >> 2, t = l & 3;
+      const U4& ra = op.a_issued[w * 32 + l];
+      const U4& now = (*op.a)[tid];
+      for (int i = 0; i < 4; ++i)
+        if (now.x[i] != ra.x[i]) fault("wgmma: A registers changed before the product retired");
+      for (int q = 0; q < 2; ++q) {
+        A[16 * w + g][2 * t + q] = half_f(ra.x[0], q);
+        A[16 * w + g + 8][2 * t + q] = half_f(ra.x[1], q);
+        A[16 * w + g][2 * t + 8 + q] = half_f(ra.x[2], q);
+        A[16 * w + g + 8][2 * t + 8 + q] = half_f(ra.x[3], q);
       }
     }
-    const pt_bf16* wb = wbuf + (st & 1) * wbuf_stride;
-    const int kk = st / n_pieces, kc0 = (st - kk * n_pieces) * step_chunks;
-    const int kc1 = min(g.k_chunks, kc0 + step_chunks);
-    PT_WARPS(wp) {
+  for (int k = 0; k < 16; ++k)
+    for (int n = 0; n < N; ++n) {
+      uint32_t ad;
+      if (!desc_addr(op.desc, k, n, &ad) || ad + 2 > g_smem_bytes || ad % 2) {
+        fault("wgmma: B descriptor outside shared memory or unsupported");
+        B[k][n] = 0.f;
+        continue;
+      }
+      pt_bf16 v;
+      std::memcpy(&v, g_smem + ad, 2);
+      B[k][n] = pt_bf16_to_float(v);
+    }
+  for (int w = 0; w < 4; ++w)
+    for (int l = 0; l < 32; ++l) {
+      const int tid = op.wg * 128 + w * 32 + l, g = l >> 2, t = l & 3;
+      Acc<N>& c = d[tid];
+      for (int i = 0; i < N / 2; ++i) {
+        const int row = 16 * w + g + 8 * ((i >> 1) & 1), col = 8 * (i >> 2) + 2 * t + (i & 1);
+        float acc = c.x[i];
+        for (int k = 0; k < 16; ++k) acc = fmaf(A[row][k], B[k][col], acc);
+        c.x[i] = acc;
+      }
+    }
+}
+#else
+template <int N>
+PT_DEVICE void wgmma_rs_asm(float* d, const uint32_t* a, uint64_t desc);
+template <>
+PT_DEVICE void wgmma_rs_asm<16>(float* d, const uint32_t* a, uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+template <>
+PT_DEVICE void wgmma_rs_asm<32>(float* d, const uint32_t* a, uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+template <>
+PT_DEVICE void wgmma_rs_asm<64>(float* d, const uint32_t* a, uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+template <>
+PT_DEVICE void wgmma_rs_asm<128>(float* d, const uint32_t* a, uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+template <>
+PT_DEVICE void wgmma_rs_asm<256>(float* d, const uint32_t* a, uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+#endif
+
+// wgmma.fence: orders this warpgroup's register writes (A fragments,
+// accumulators) before the products that read them.
+PT_DEVICE void wgmma_fence(int wg) {
+#ifdef PT_HOST_EMULATION
+  g_mma_fenced[wg] = true;
+#else
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#endif
+}
+
+PT_DEVICE void wgmma_commit(int wg) {
+#ifdef PT_HOST_EMULATION
+  g_mma_groups[wg].push_back(g_mma_open[wg]);
+  g_mma_open[wg] = 0;
+#else
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+#endif
+}
+
+// wgmma.wait_group: wait until at most `Pending` committed groups are in
+// flight (the emulation retires the older ones now, in order).
+template <int Pending>
+PT_DEVICE void wgmma_wait(int wg) {
+#ifdef PT_HOST_EMULATION
+  while ((int)g_mma_groups[wg].size() > Pending) {
+    const int n = g_mma_groups[wg].front();
+    g_mma_groups[wg].erase(g_mma_groups[wg].begin());
+    for (int i = 0; i < n; ++i) g_mma[wg][i].run(g_mma[wg][i]);
+    g_mma[wg].erase(g_mma[wg].begin(), g_mma[wg].begin() + n);
+  }
+  g_mma_fenced[wg] = false;
+#else
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(Pending) : "memory");
+#endif
+}
+
+// One asynchronous warpgroup product, D += A * B.
+template <int N>
+PT_DEVICE void wgmma(Regs<Acc<N>>& d, const Regs<U4>& a, uint64_t desc_b, int wg) {
+#ifdef PT_HOST_EMULATION
+  if (!g_mma_fenced[wg]) fault("wgmma without a wgmma.fence after its registers were written");
+  EmuMma op;
+  op.d = &d;
+  op.a = &a;
+  for (int i = 0; i < 128; ++i) op.a_issued[i] = a[wg * 128 + i];
+  op.desc = desc_b;
+  op.wg = wg;
+  op.run = &emu_wgmma_run<N>;
+  g_mma[wg].push_back(op);
+  ++g_mma_open[wg];
+#else
+  wgmma_rs_asm<N>(d[0].x, a[0].x, desc_b);
+#endif
+}
+
+// Keeps the compiler from moving accumulator reads or writes across the
+// asynchronous products.
+template <int N>
+PT_DEVICE void fence_acc(Regs<Acc<N>>& d) {
+#ifndef PT_HOST_EMULATION
 #pragma unroll
-      for (int m = 0; m < kMI; ++m) {
-        const int e = wp + kWarps * m;
-        if (e >= n_items) break;
-        const int mt = e / g.n_pairs, np = e - mt * g.n_pairs;
-        const int ra = g.row0 + mt * 16 + kk * g.a_step + g.a_shift;
-        for (int kc = kc0; kc < kc1; ++kc) {
-          Regs<const pt_bf16*> pa, pb;
-          Regs<U4> fa, fb;
-          PT_LANES(wp, tid) {
-            const int l = tid & 31, r = (l & 7) + ((l >> 3) & 1) * 8, c = (l >> 4) * 8;
-            pa[tid] = g.a + (size_t)(ra + r) * g.lda + kc * 16 + c;
-            pb[tid] = wb + (size_t)((kc - kc0) * 16 + r) * ldw + np * 16 + c;
-          }
-          ldsm_x4(fa, pa, wp);
-          ldsm_x4_trans(fb, pb, wp);
-          mma_bf16(acc[m][0], fa, fb, 0, wp);
-          mma_bf16(acc[m][1], fa, fb, 1, wp);
+  for (int i = 0; i < N / 2; ++i) asm volatile("" : "+f"(d[0].x[i])::"memory");
+#endif
+}
+
+// ---------------------------------------------------------------------------
+// The weight ring
+// ---------------------------------------------------------------------------
+
+// One segment of a block's weight stream: `bytes` contiguous from src
+// (one conv's taps, or one polyphase output phase's), in stages of
+// piece_bytes (the last one shorter where the bytes end first).
+struct SegInfo {
+  const char* src;
+  int bytes, piece_bytes;
+};
+
+// The weights a block's GEMMs read, in the order they read them, flow
+// from device memory (L2) through n_slots shared stages: stage s lands in
+// slot s % n_slots by one bulk copy that completes on full[slot]; each of
+// the block's consumer warps arrives on empty[slot] once its products on
+// the stage have retired. One thread of the producer warpgroup issues the
+// copies: it refills a slot as soon as its readers have released it, so
+// up to n_slots stages are in flight and the consumers never issue or
+// wait for one another. Stream: SegInfo operator()(int seg) and int
+// total(), the stages of all segments.
+struct Ring {
+  char* slots;
+  int slot_bytes, n_slots;
+  uint64_t *full, *empty;
+  int tail;                     // stages read (consumers)
+  int head, total, seg, piece;  // stages issued, in the stream, cursor (producer)
+};
+
+template <typename Stream>
+PT_DEVICE void ring_issue(Ring& r, const Stream& s) {
+  const int slot = r.head % r.n_slots;
+  const SegInfo si = s(r.seg);
+  const int done = r.piece * si.piece_bytes, bytes = min(si.piece_bytes, si.bytes - done);
+  mbar_arrive_expect_tx(r.full + slot, (uint32_t)bytes);
+  bulk_copy(r.slots + (size_t)slot * r.slot_bytes, si.src + done, (uint32_t)bytes, r.full + slot);
+  ++r.head;
+  if (done + bytes == si.bytes) {
+    r.piece = 0;
+    ++r.seg;
+  } else {
+    ++r.piece;
+  }
+}
+
+#ifdef PT_HOST_EMULATION
+// The producer's progress, as the host emulation models it where a
+// consumer waits on stage `tail` (as far as the producer can have got):
+// every stage whose slot its readers have released, waiting for a slot
+// only when the stage about to be read is not yet issued.
+template <typename Stream>
+void ring_pump(Ring& r, const Stream& s) {
+  while (r.head < r.total && r.head < r.tail + r.n_slots) {
+    if (r.head >= r.n_slots) {
+      uint64_t* empty = r.empty + r.head % r.n_slots;
+      const uint32_t parity = (uint32_t)((r.head / r.n_slots - 1) & 1);
+      if (r.head > r.tail) {
+        if (!mbar_test(empty, parity)) return;
+      } else {
+        mbar_wait(empty, parity);
+      }
+    }
+    ring_issue(r, s);
+  }
+}
+#endif
+
+#ifndef PT_HOST_EMULATION
+template <int Regs>
+PT_DEVICE void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(Regs));
+}
+template <int Regs>
+PT_DEVICE void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(Regs));
+}
+#endif
+
+// Start the ring and split the block: returns false in the producer
+// warpgroup, whose first thread has streamed every stage of the block by
+// then, and true in the consumers, once the barriers are initialised.
+// Its barrier also orders the consumers' writes before it. (The host
+// emulation initialises the barriers and issues the first stages here.)
+template <typename Stream>
+PT_DEVICE bool ring_split(Ring& r, const Stream& s) {
+  r.tail = r.head = r.seg = r.piece = 0;
+  r.total = s.total();
+#ifdef PT_HOST_EMULATION
+  for (int i = 0; i < r.n_slots; ++i) {
+    mbar_init(r.full + i, 1);
+    mbar_init(r.empty + i, kWarps);
+  }
+  ring_pump(r, s);
+  return true;
+#else
+  if (threadIdx.x >= kThreads) {
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x < kThreads + 32) {
+      if (threadIdx.x == kThreads) {
+        for (int i = 0; i < r.n_slots; ++i) {
+          mbar_init(r.full + i, 1);
+          mbar_init(r.empty + i, kWarps);
+        }
+        mbar_fence_init();
+      }
+      asm volatile("bar.sync 2, %0;\n" ::"n"(kThreads + 32) : "memory");
+      if (threadIdx.x == kThreads)
+        while (r.head < r.total) {
+          if (r.head >= r.n_slots)
+            mbar_wait(r.empty + r.head % r.n_slots, (uint32_t)((r.head / r.n_slots - 1) & 1));
+          ring_issue(r, s);
+        }
+    }
+    return false;
+  }
+  setmaxnreg_inc<kConsumerRegs>();
+  asm volatile("bar.sync 2, %0;\n" ::"n"(kThreads + 32) : "memory");
+  return true;
+#endif
+}
+
+// ---------------------------------------------------------------------------
+// One conv as an implicit GEMM on the tensor cores
+// ---------------------------------------------------------------------------
+
+// out[r][n] = sum_tap sum_k A[r + tap*a_step + a_shift][k] * W_tap[k][n]
+// for output rows r in [row0, row0 + n_rows) and columns n < n_real. A is
+// position-major bf16 in shared memory (a_rows rows of stride lda, zero
+// columns past the real K); the W_tap come from the ring, tap by tap, each
+// in k_chunks / step_chunks stages of step_chunks 16-channel chunks
+// (rows of the kernel's weight layout: K-major 8 x 8 core matrices,
+// N = the product's width). Warpgroup wg owns the 64-row tiles mt with
+// (mt + rot) % kGroups == wg (at most mt_per_group(N)) and every column,
+// and keeps their
+// f32 sums in registers; its four warps load A with ldmatrix (a dilated
+// tap is a shift of the A rows; rows past the window are clamped to its
+// last row and their sums discarded). The sums run over taps, then
+// 16-channel chunks, so an output element's order depends neither on the
+// tile nor on the stage size. epi(r, col0, v) receives row r's sums at
+// columns col0 + 8j + {0, 1} as v[2j], v[2j + 1] for j < kEpiPairs<N>
+// (the columns one thread holds; those at or past n_real are not
+// defined), so it can issue all its loads before its stores.
+template <int N>
+constexpr int kEpiPairs = N / 8 < 8 ? N / 8 : 8;
+
+struct Gemm {
+  const pt_bf16* a;
+  int lda, a_rows, row0, n_rows, a_step, a_shift, k_chunks, step_chunks, step_taps, n_real, n_taps;
+  int rot;  // tile mt belongs to warpgroup (mt + rot) % kGroups
+};
+
+// One step of warpgroup wg: its T output tiles (first, first + kGroups,
+// ...) times U units of the stage at shared address b0, unit u being
+// chunk kc0 + u % KC of tap kk0 + u / KC (a stage holds its taps' chunks
+// in that order, N * 32 bytes each). For each tile the warps load its A
+// units with ldmatrix, then the group issues their products (so the next
+// tile's loads overlap this tile's products); then it waits for all of
+// them. T, KC and U are compile-time, so the products form one
+// branch-free run that the compiler does not serialise.
+template <int N, int T, int KC, int U>
+PT_DEVICE void step_products(Regs<Acc<N>>* acc, Regs<U4> (*fa)[kMaxChunks], const Gemm& g, int wg, int first,
+                             int kk0, int kc0, uint32_t b0) {
+#pragma unroll
+  for (int m = 0; m < T; ++m) {
+    const int mt = first + kGroups * m;
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      PT_GROUP_WARPS(wg, wp) {
+        Regs<const pt_bf16*> pa;
+        PT_LANES(wp, tid) {
+          const int l = tid & 31;
+          const int r = g.row0 + mt * 64 + (wp & 3) * 16 + (kk0 + u / KC) * g.a_step + g.a_shift + (l & 7) +
+                        ((l >> 3) & 1) * 8;
+          pa[tid] = g.a + (size_t)min(r, g.a_rows - 1) * g.lda + (kc0 + u % KC) * 16 + (l >> 4) * 8;
+        }
+        ldsm_x4(fa[m][u], pa, wp);
+      }
+    }
+    wgmma_fence(wg);
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      // unit u: core-matrix rows 2u, 2u + 1 of the stage (N / 8 core
+      // matrices of 128 bytes each)
+      wgmma<N>(acc[m], fa[m][u], wgmma_desc(b0 + u * N * 32, N * 16, 128), wg);
+  }
+  wgmma_commit(wg);
+  wgmma_wait<0>(wg);
+}
+
+template <int N, int KC, int U>
+PT_DEVICE void step_tiles(Regs<Acc<N>>* acc, Regs<U4> (*fa)[kMaxChunks], const Gemm& g, int wg, int first,
+                          int mine, int kk0, int kc0, uint32_t b0) {
+  constexpr int MT = mt_per_group(N);
+  if (mine == 1) step_products<N, 1, KC, U>(acc, fa, g, wg, first, kk0, kc0, b0);
+  if constexpr (MT >= 2)
+    if (mine == 2) step_products<N, 2, KC, U>(acc, fa, g, wg, first, kk0, kc0, b0);
+  if constexpr (MT >= 3)
+    if (mine == 3) step_products<N, 3, KC, U>(acc, fa, g, wg, first, kk0, kc0, b0);
+  if constexpr (MT >= 4)
+    if (mine == 4) step_products<N, 4, KC, U>(acc, fa, g, wg, first, kk0, kc0, b0);
+}
+
+// The step's products with KC and U as compile-time constants: KC = 4 (one
+// unit per chunk), 2 (one or two taps) or 1 (one to four taps).
+template <int N>
+PT_DEVICE void step_units(Regs<Acc<N>>* acc, Regs<U4> (*fa)[kMaxChunks], const Gemm& g, int wg, int first,
+                          int mine, int units, int kk0, int kc0, uint32_t b0) {
+  if (g.step_chunks == kMaxChunks) {
+    step_tiles<N, kMaxChunks, kMaxChunks>(acc, fa, g, wg, first, mine, kk0, kc0, b0);
+  } else if (g.step_chunks == 2) {
+    if constexpr (N <= 64)  // stage_taps: several taps only up to 64 wide
+      if (units == 4) step_tiles<N, 2, 4>(acc, fa, g, wg, first, mine, kk0, kc0, b0);
+    if (units == 2) step_tiles<N, 2, 2>(acc, fa, g, wg, first, mine, kk0, kc0, b0);
+  } else {
+    if constexpr (N <= 64) {
+      if (units == 4) step_tiles<N, 1, 4>(acc, fa, g, wg, first, mine, kk0, kc0, b0);
+      if (units == 3) step_tiles<N, 1, 3>(acc, fa, g, wg, first, mine, kk0, kc0, b0);
+      if (units == 2) step_tiles<N, 1, 2>(acc, fa, g, wg, first, mine, kk0, kc0, b0);
+    }
+    if (units == 1) step_tiles<N, 1, 1>(acc, fa, g, wg, first, mine, kk0, kc0, b0);
+  }
+}
+
+template <int N, typename Stream, typename Epi>
+PT_DEVICE void gemm(const Gemm& g, Ring& ring, const Stream& stream, Epi epi) {
+  constexpr int MT = mt_per_group(N);
+  const int n_mt = (g.n_rows + 63) / 64;
+  const int pieces = g.k_chunks / g.step_chunks;  // steps of one tap (1 where a step holds taps)
+  const int n_steps = g.step_taps > 1 ? (g.n_taps + g.step_taps - 1) / g.step_taps : g.n_taps * pieces;
+  Regs<Acc<N>> acc[MT];
+  Regs<U4> fa[MT][kMaxChunks];
+  PT_CTHREADS(tid) {
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int i = 0; i < N / 2; ++i) acc[m][tid].x[i] = 0.f;
+  }
+  for (int st = 0; st < n_steps; ++st) {
+    const int kk0 = g.step_taps > 1 ? st * g.step_taps : st / pieces;
+    const int kc0 = g.step_taps > 1 ? 0 : (st - kk0 * pieces) * g.step_chunks;
+    const int units = g.step_taps > 1 ? min(g.step_taps, g.n_taps - kk0) * g.step_chunks : g.step_chunks;
+    const int slot = ring.tail % ring.n_slots;
+    PT_CTHREADS(tid) {
+#ifdef PT_HOST_EMULATION
+      if (tid == 0) ring_pump(ring, stream);
+#endif
+      mbar_wait(ring.full + slot, (uint32_t)((ring.tail / ring.n_slots) & 1));
+    }
+    const uint32_t b0 = smem_addr(ring.slots + (size_t)slot * ring.slot_bytes);
+    PT_GROUPS(wg) {
+      const int first = (wg + kGroups - g.rot % kGroups) % kGroups;           // this group's first tile
+      const int mine = n_mt > first ? (n_mt - first + kGroups - 1) / kGroups : 0;  // and its tiles
+      step_units<N>(acc, fa, g, wg, first, mine, units, kk0, kc0, b0);
+      PT_GROUP_WARPS(wg, wp) {
+        PT_LANES(wp, tid) {
+          if ((tid & 31) == 0) mbar_arrive(ring.empty + slot);
         }
       }
     }
+    ++ring.tail;
   }
-  PT_WARPS(wp) {
 #pragma unroll
-    for (int m = 0; m < kMI; ++m) {
-      const int e = wp + kWarps * m;
-      if (e >= n_items) break;
-      const int mt = e / g.n_pairs, np = e - mt * g.n_pairs;
-      for (int j = 0; j < 2; ++j) {
+  for (int m = 0; m < MT; ++m) fence_acc<N>(acc[m]);
+  PT_GROUPS(wg) {
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      const int mt = (wg + kGroups - g.rot % kGroups) % kGroups + kGroups * m;
+      if (mt >= n_mt) break;
+      PT_GROUP_WARPS(wg, wp) {
         PT_LANES(wp, tid) {
           const int l = tid & 31;
-          const int col = np * 16 + j * 8 + 2 * (l & 3);
-          if (col < g.n_real) {
-            const F4& c = acc[m][j][tid];
-            const int r = g.row0 + mt * 16 + (l >> 2);
-            if (r < g.row0 + g.n_rows) epi(r, col, c.x[0], c.x[1]);
-            if (r + 8 < g.row0 + g.n_rows) epi(r + 8, col, c.x[2], c.x[3]);
+          const Acc<N>& c = acc[m][tid];
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int r = g.row0 + mt * 64 + (wp & 3) * 16 + (l >> 2) + 8 * half;
+            if (r >= g.row0 + g.n_rows) continue;
+#pragma unroll
+            for (int grp = 0; grp < N / 8 / kEpiPairs<N>; ++grp) {
+              const int col0 = grp * 8 * kEpiPairs<N> + 2 * (l & 3);
+              if (col0 >= g.n_real) break;
+              float v[2 * kEpiPairs<N>];
+#pragma unroll
+              for (int jj = 0; jj < kEpiPairs<N>; ++jj) {
+                v[2 * jj] = c.x[4 * (grp * kEpiPairs<N> + jj) + 2 * half];
+                v[2 * jj + 1] = c.x[4 * (grp * kEpiPairs<N> + jj) + 2 * half + 1];
+              }
+              epi(r, col0, v);
+            }
           }
         }
       }
@@ -295,17 +838,54 @@ PT_DEVICE void gemm(const Gemm& g, pt_bf16* wbuf, int ldw, int step_rows, size_t
 PT_DEVICE float lrelu(float v, float slope) { return v >= 0.f ? v : v * slope; }
 PT_DEVICE float round_bf16(float v) { return to_f(from_f<pt_bf16>(v)); }
 
+PT_DEVICE void zero16(void* p) {
+#ifdef PT_HOST_EMULATION
+  std::memset(p, 0, 16);
+#else
+  *reinterpret_cast<uint4*>(p) = make_uint4(0, 0, 0, 0);
+#endif
+}
+
+// Two neighbouring bf16 (p on 4 bytes) as floats, and two floats rounded
+// to bf16 and stored together.
+struct F2 {
+  float x, y;
+};
+PT_DEVICE F2 ld_pair(const pt_bf16* p) {
+#ifdef PT_HOST_EMULATION
+  return {to_f(p[0]), to_f(p[1])};
+#else
+  const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+  return {f.x, f.y};
+#endif
+}
+PT_DEVICE void st_pair(pt_bf16* p, float a, float b) {
+#ifdef PT_HOST_EMULATION
+  p[0] = from_f<pt_bf16>(a);
+  p[1] = from_f<pt_bf16>(b);
+#else
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+#endif
+}
+PT_DEVICE F2 ldg_pair(const float* p) {
+#ifdef PT_HOST_EMULATION
+  return {p[0], p[1]};
+#else
+  const float2 f = __ldg(reinterpret_cast<const float2*>(p));
+  return {f.x, f.y};
+#endif
+}
+
 // The bf16 MRF chain's shared-memory buffers over a window of w
 // position-major rows of stride ldc (round16(c) + 8 bf16: ldmatrix rows
-// hit distinct banks): the conv inputs a[0], a[1] (w + 16 rows each, for
-// a GEMM tile's reads past its range), the residual stream h (w rows),
-// the resblock sum xs (xs_w rows, window rows xs_off...) and the two
-// weight-step buffers wb (wb_rows rows each, wb_stride apart). Window
-// rows in [v_lo, v_hi) are inside the row's valid length.
+// hit distinct banks): the conv inputs a[0], a[1], the residual stream h
+// (w rows each), the resblock sum xs (xs_w rows, window rows xs_off...).
+// Window rows in [v_lo, v_hi) are inside the row's valid length; each
+// conv's weights come from the ring in steps of step_chunks chunks of
+// step_taps taps.
 struct ChainTc {
-  pt_bf16 *a[2], *h, *xs, *wb;
-  size_t wb_stride;
-  int wb_rows, c, cp, ldc, w, xs_off, xs_w, v_lo, v_hi;
+  pt_bf16 *a[2], *h, *xs;
+  int step_chunks, step_taps, c, cp, ldc, w, xs_off, xs_w, v_lo, v_hi;
 };
 
 // Run the MRF chain of one stage on the tensor cores; xs must be zero on
@@ -320,15 +900,16 @@ struct ChainTc {
 // next conv's input, or adds the residual, rounds, and writes the next
 // conv's input or, after the last conv, adds to xs; the rounding points
 // are those of the plain version (ops/cuda/vocoder.py::mrf_fused_plain).
-template <typename LoadIn>
-PT_DEVICE void mrf_chain_tc(const MrfPlan& plan, const ChainTc& m, const pt_bf16* __restrict__ wm,
+// The convs' weights are the ring stream's next segments, in plan order.
+template <int N, typename Stream, typename LoadIn>
+PT_DEVICE void mrf_chain_tc(const MrfPlan& plan, const ChainTc& m, Ring& ring, const Stream& stream,
                             const float* __restrict__ bm, LoadIn load_in) {
   const int c = m.c, ldc = m.ldc;
   const pt_bf16 zero = from_f<pt_bf16>(0.f);
   int conv = 0;
   for (int r = 0; r < plan.n_res; ++r) {
-    PT_THREADS(tid) { load_in(tid); }
-    PT_SYNC();
+    PT_CTHREADS(tid) { load_in(tid); }
+    PT_CSYNC();
     int reach = 0;
     for (int j = 0; j < plan.n_steps[r]; ++j) reach += (plan.k[conv + j] * plan.d[conv + j] - plan.d[conv + j]) / 2;
     int cur = 0;
@@ -341,28 +922,39 @@ PT_DEVICE void mrf_chain_tc(const MrfPlan& plan, const ChainTc& m, const pt_bf16
       pt_bf16* nxt = m.a[cur ^ 1];
       pt_bf16* h = m.h;
       pt_bf16* xs = m.xs;
-      Gemm g{m.a[cur], ldc, m.xs_off - reach, m.xs_w + 2 * reach, d, -pad, m.cp / 16, m.cp / 16,
-             wm + (size_t)conv * plan.k_max * c * c, (size_t)c * c, c, c, k};
-      gemm(g, m.wb, ldc, m.wb_rows, m.wb_stride, [&](int i, int col, float v0, float v1) {
+      const Gemm g{m.a[cur],     ldc,           m.w,         m.xs_off - reach, m.xs_w + 2 * reach, d, -pad,
+                   m.cp / 16,    m.step_chunks, m.step_taps, c,                k,                  0};
+      gemm<N>(g, ring, stream, [&](int i, int col0, const float* v) {
+        constexpr int J = kEpiPairs<N>;
         const bool ok = i >= m.v_lo && i < m.v_hi;
-        for (int q = 0; q < 2; ++q) {
-          const size_t e = (size_t)i * ldc + col + q;
-          const float v = round_bf16((q ? v1 : v0) + PT_LDG(bias + col + q));
+        const size_t row = (size_t)i * ldc + col0;
+        F2 b[J], hv[J], xv[J];
+#pragma unroll
+        for (int j = 0; j < J; ++j) {  // every load first, then the stores
+          if (col0 + 8 * j >= c) break;
+          b[j] = ldg_pair(bias + col0 + 8 * j);
+          if (!inner) hv[j] = ld_pair(h + row + 8 * j);
+          if (last) xv[j] = ld_pair(xs + (size_t)(i - m.xs_off) * ldc + col0 + 8 * j);
+        }
+#pragma unroll
+        for (int j = 0; j < J; ++j) {
+          if (col0 + 8 * j >= c) break;
+          const float u0 = round_bf16(v[2 * j] + b[j].x), u1 = round_bf16(v[2 * j + 1] + b[j].y);
           if (inner) {
-            nxt[e] = ok ? from_f<pt_bf16>(lrelu(v, 0.1f)) : zero;
+            st_pair(nxt + row + 8 * j, ok ? lrelu(u0, 0.1f) : 0.f, ok ? lrelu(u1, 0.1f) : 0.f);
             continue;
           }
-          const float hn = round_bf16(to_f(h[e]) + v);
-          h[e] = from_f<pt_bf16>(hn);
+          const float h0 = round_bf16(hv[j].x + u0), h1 = round_bf16(hv[j].y + u1);
           if (last) {
-            const size_t ex = (size_t)(i - m.xs_off) * ldc + col + q;
-            xs[ex] = from_f<pt_bf16>(to_f(xs[ex]) + (ok ? hn : 0.f));
+            st_pair(xs + (size_t)(i - m.xs_off) * ldc + col0 + 8 * j, xv[j].x + (ok ? h0 : 0.f),
+                    xv[j].y + (ok ? h1 : 0.f));
           } else {
-            nxt[e] = ok ? from_f<pt_bf16>(lrelu(hn, 0.1f)) : zero;
+            st_pair(h + row + 8 * j, h0, h1);
+            st_pair(nxt + row + 8 * j, ok ? lrelu(h0, 0.1f) : 0.f, ok ? lrelu(h1, 0.1f) : 0.f);
           }
         }
       });
-      PT_SYNC();
+      PT_CSYNC();
       cur ^= 1;
     }
   }

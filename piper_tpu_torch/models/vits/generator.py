@@ -186,7 +186,8 @@ def prepare_tm(
 ) -> Params:
     """Derived weights of the time-major path: per-stage polyphase tables
     (u, nq, c_in, c_out) and packed MRF weights for the kernels, on the
-    device of the generator's weights."""
+    device of the generator's weights; on CUDA in bf16, also the bf16
+    kernels' layout of each (ops/cuda/vocoder.py::tc_weights)."""
     ks = tuple(cfg.resblock_kernel_sizes)
     ds = tuple(tuple(d) for d in cfg.resblock_dilation_sizes)
     start = tm_start_stage(cfg)
@@ -207,6 +208,10 @@ def prepare_tm(
         mrf.append(
             V.pack_stage_weights(dec_params["resblocks"][i], ks, ds, cfg.resblock, dtype=dtype)
         )
+    if dtype == torch.bfloat16:  # the bf16 kernels' weight layout, made once here
+        for w in ups[start:] + [pw for pw, _ in mrf[start:]]:
+            if w.is_cuda:
+                V.tc_weights(w)
     return {
         "ups": ups,
         "mrf": mrf,

@@ -11,10 +11,15 @@ through a plain C interface.
                        [-> conv_post -> tanh], phase-plane layouts
 
 Each kernel has two bodies: float32 (parity) on the CUDA cores, and
-bfloat16 (serving) on the tensor cores (mma.sync, csrc/tc_common.cuh).
-The bf16 bodies' tiles come from their shared-memory layouts, mirrored
-here: mrf_smem_bytes_tc / mrf_tc_fits (mrf_fused.cu::mrf_tc_layout) and
-fused_smem_bytes_tc / fused_tc_fits (fused_upsample_mrf.cu::tc_layout).
+bfloat16 (serving) on the tensor cores (csrc/tc_common.cuh: wgmma, with
+the weights fed through a ring of shared stages by bulk copies of the
+Tensor Memory Accelerator). The bf16 bodies read their weights in a
+kernel layout (tc_weight_layout: K-major 8 x 8 core matrices, the layout
+the wgmma descriptor reads), made once per weight tensor (tc_weights,
+which prepare_tm in models/vits/generator.py calls for the voice's
+weights). Their tiles come from their shared-memory layouts, mirrored
+here: mrf_tc_layout / mrf_tc_fits (mrf_fused.cu::mrf_tc_layout) and
+fused_tc_layout / fused_tc_fits (fused_upsample_mrf.cu::tc_layout).
 
 Each wrapper takes its plain PyTorch version (`*_plain`, same signature
 and output layout) only when the input lies on the CPU. For a CUDA
@@ -37,12 +42,14 @@ from __future__ import annotations
 import collections
 import contextlib
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 import tempfile
 import threading
+import weakref
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
@@ -63,8 +70,13 @@ NVCC_FLAGS = (
 
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use (H100)
 THREADS = 256  # threads per block (csrc/mrf_common.cuh: kThreads)
-TC_TILES = 8 * 12  # (16-row, 16-column) GEMM tiles a block holds (kWarps * kMI)
-MRF_TC_STEP_ROWS = 64  # weight rows mrf_fused's bf16 body stages per GEMM step (kStepRows)
+# The bf16 bodies (csrc/tc_common.cuh): warpgroups per block (kGroups),
+# 16-channel chunks per weight stage (kMaxChunks), the ring's stages
+# (kRingMin, kRingMax) and the bytes of its mbarriers (kBarBytes).
+TC_GROUPS = 2
+TC_MAX_CHUNKS = 4
+TC_RING_MIN, TC_RING_MAX = 3, 8
+TC_BAR_BYTES = 128
 MAX_TILE = 4096
 
 
@@ -178,53 +190,166 @@ def _r16(n: int) -> int:
     return -(-n // 16) * 16
 
 
-def fused_smem_bytes_tc(c_in, c_out, u, nq, tile, halo, hpost) -> int:
-    """Bytes of shared memory the bf16 tensor-core body of
-    fused_upsample_mrf.cu takes (csrc/fused_upsample_mrf.cu::tc_layout):
-    position-major rows of round16(C) + 8 bf16 for the two conv inputs
-    (+16 rows each), the residual stream, the transposed conv's output and
-    the resblock sum; the input window; two whole-tap weight buffers."""
-    ldc, ldi = _r16(c_out) + 8, _r16(c_in) + 8
-    w = tile + 2 * halo
-    n_fr = (w + u - 2) // u + 1
-    n = (
-        ldc * (2 * (w + 16) + 2 * w + tile + 2 * hpost)
-        + ldi * (_r16(n_fr) + nq)
-        + 2 * max(_r16(c_in), _r16(c_out)) * ldc
-    )
-    return 2 * n
+def _npad(cp: int) -> int:
+    """Width of the bf16 bodies' warpgroup product for cp padded output
+    channels: the power of two from 16 to 256 at or above it, 0 if wider
+    (tc_common.cuh::npad)."""
+    n = 16
+    while n < cp:
+        n *= 2
+    return n if n <= 256 else 0
 
 
-def fused_tc_fits(c_in, c_out, u, nq, tile, halo, hpost) -> bool:
-    """Whether the bf16 body runs this tile: its layout fits shared memory
-    and each GEMM's (16-row, 16-column) tiles fit the block's warps."""
-    w = tile + 2 * halo
-    return (
-        -(-w // 16) * (_r16(c_out) // 16) <= TC_TILES
-        and fused_smem_bytes_tc(c_in, c_out, u, nq, tile, halo, hpost) <= SMEM_LIMIT
+def _mt_per_group(n: int) -> int:
+    """64-row output tiles one warpgroup holds at product width n."""
+    return 1 if n >= 256 else 2 if n >= 128 else 3 if n >= 64 else 4
+
+
+def _step_rows(k: int, n: int) -> int:
+    """Input-channel rows of one step: 16, 32 or 64, at most 16 KB,
+    dividing k (tc_common.cuh::step_rows)."""
+    r = 16 * TC_MAX_CHUNKS
+    while r > 16 and (r * n * 2 > 16384 or k % r):
+        r //= 2
+    return r
+
+
+def _stage_taps(k: int, n: int) -> int:
+    """Taps of one weight stage: several where a whole tap is one step of
+    fewer than 4 chunks (k = 16, 32) and the product is at most 64 wide,
+    up to 4 chunks and 16 KB together; else 1 (tc_common.cuh::stage_taps)."""
+    if n > 64 or _step_rows(k, n) != k:
+        return 1
+    t = 16 * TC_MAX_CHUNKS // k
+    while t > 1 and t * k * n * 2 > 16384:
+        t -= 1
+    return t
+
+
+def _ring(windows: int, slot: int) -> Tuple[int, int]:
+    """(stages, offset of the first window): as many stages as fit beside
+    the windows, from TC_RING_MIN to TC_RING_MAX (tc_common.cuh::ring_slots)."""
+    n = TC_RING_MIN
+    while n < TC_RING_MAX and TC_BAR_BYTES + (n + 1) * slot + windows <= SMEM_LIMIT:
+        n += 1
+    return n, TC_BAR_BYTES + n * slot
+
+
+def mrf_tc_layout(c, tile, halo) -> Dict[str, int]:
+    """Shared-memory layout of mrf_fused.cu's bf16 body, in bytes, field
+    by field as csrc/mrf_fused.cu::mrf_tc_layout: the ring's mbarriers and
+    weight stages, then position-major windows with rows of round16(C) + 8
+    bf16 for the two conv inputs and the residual stream (w rows each) and
+    the resblock sum (tile rows)."""
+    cp = _r16(c)
+    np_ = _npad(cp)
+    ldc, w = cp + 8, tile + 2 * halo
+    step = _step_rows(cp, np_) if np_ else 16
+    taps = _stage_taps(cp, np_) if np_ else 1
+    slot, row = taps * step * np_ * 2, 2 * ldc
+    n_slots, a0 = _ring((3 * w + tile) * row, slot)
+    return dict(
+        cp=cp, np=np_, ldc=ldc, w=w, step_rows=step, taps=taps, slot_bytes=slot, n_slots=n_slots,
+        bar=0, ring=TC_BAR_BYTES, a0=a0, a1=a0 + w * row, h=a0 + 2 * w * row,
+        xs=a0 + 3 * w * row, bytes=a0 + (3 * w + tile) * row,
     )
 
 
 def mrf_smem_bytes_tc(c, tile, halo) -> int:
-    """Bytes of shared memory the bf16 tensor-core body of mrf_fused.cu
-    takes (csrc/mrf_fused.cu::mrf_tc_layout): position-major rows of
-    round16(C) + 8 bf16 for the two conv inputs (+16 rows each), the
-    residual stream and the resblock sum; two weight buffers of up to 64
-    input channels of one tap."""
-    ldc = _r16(c) + 8
-    w = tile + 2 * halo
-    return 2 * ldc * (2 * (w + 16) + w + tile + 2 * min(MRF_TC_STEP_ROWS, _r16(c)))
+    """Bytes of shared memory the bf16 body of mrf_fused.cu takes."""
+    return mrf_tc_layout(c, tile, halo)["bytes"]
 
 
 def mrf_tc_fits(c, tile, halo) -> bool:
-    """Whether the bf16 body of mrf_fused runs this tile: its layout fits
-    shared memory and each GEMM's (16-row, 16-column) tiles fit the
-    block's warps."""
-    w = tile + 2 * halo
+    """Whether the bf16 body of mrf_fused runs this tile: a product width
+    of at most 256, the window's 64-row output tiles within the two
+    warpgroups' registers, the layout within shared memory."""
+    lay = mrf_tc_layout(c, tile, halo)
     return (
-        -(-w // 16) * (_r16(c) // 16) <= TC_TILES
-        and mrf_smem_bytes_tc(c, tile, halo) <= SMEM_LIMIT
+        c % 4 == 0 and lay["np"] > 0
+        and -(-lay["w"] // 64) <= TC_GROUPS * _mt_per_group(lay["np"])
+        and lay["bytes"] <= SMEM_LIMIT
     )
+
+
+def fused_tc_layout(c_in, c_out, u, nq, tile, halo, hpost) -> Dict[str, int]:
+    """Shared-memory layout of fused_upsample_mrf.cu's bf16 body, in
+    bytes, field by field as csrc/fused_upsample_mrf.cu::tc_layout: the
+    ring's mbarriers and weight stages, then position-major windows for
+    the two conv inputs, the residual stream and the transposed conv's
+    output (w rows each), the resblock sum (tile + 2 hpost rows) and the
+    input frames (rows of round16(C_in) + 8 bf16)."""
+    cp, cip = _r16(c_out), _r16(c_in)
+    np_ = _npad(cp)
+    ldc, ldi = cp + 8, cip + 8
+    w, xs_w = tile + 2 * halo, tile + 2 * hpost
+    n_fr = (w + u - 2) // u + 1
+    in_rows = n_fr + nq - 1
+    st_t = _step_rows(cip, np_) if np_ else 16
+    st_c = _step_rows(cp, np_) if np_ else 16
+    taps_t = _stage_taps(cip, np_) if np_ else 1
+    taps_c = _stage_taps(cp, np_) if np_ else 1
+    slot, row = max(taps_t * st_t, taps_c * st_c) * np_ * 2, 2 * ldc
+    n_slots, a0 = _ring((4 * w + xs_w) * row + in_rows * ldi * 2, slot)
+    xs = a0 + 4 * w * row
+    return dict(
+        cp=cp, np=np_, ldc=ldc, cip=cip, ldi=ldi, w=w, xs_w=xs_w, n_fr=n_fr,
+        in_rows=in_rows, step_rows_t=st_t, step_rows_c=st_c, taps_t=taps_t, taps_c=taps_c, slot_bytes=slot,
+        n_slots=n_slots, bar=0, ring=TC_BAR_BYTES, a0=a0, a1=a0 + w * row,
+        h=a0 + 2 * w * row, y=a0 + 3 * w * row, xs=xs, **{"in": xs + xs_w * row},
+        bytes=xs + xs_w * row + in_rows * ldi * 2,
+    )
+
+
+def fused_smem_bytes_tc(c_in, c_out, u, nq, tile, halo, hpost) -> int:
+    """Bytes of shared memory the bf16 body of fused_upsample_mrf.cu takes."""
+    return fused_tc_layout(c_in, c_out, u, nq, tile, halo, hpost)["bytes"]
+
+
+def fused_tc_fits(c_in, c_out, u, nq, tile, halo, hpost) -> bool:
+    """Whether the bf16 body runs this tile: a product width of at most
+    256, the window's (or the input frames') 64-row output tiles within
+    the two warpgroups' registers, the layout within shared memory."""
+    lay = fused_tc_layout(c_in, c_out, u, nq, tile, halo, hpost)
+    return (
+        c_out % 4 == 0 and lay["np"] > 0
+        and -(-max(lay["w"], lay["n_fr"]) // 64) <= TC_GROUPS * _mt_per_group(lay["np"])
+        and lay["bytes"] <= SMEM_LIMIT
+    )
+
+
+def _chain_products(blocks, tile: int, chunks: int) -> int:
+    """Warpgroup products on the busier warpgroup for the MRF chain of one
+    block whose resblock sum spans `tile` rows: conv j of a resblock
+    computes tile + 2 E rows (E = the reach of the convs after it)."""
+    n = 0
+    for steps in blocks:
+        reach = sum((k * d - d) // 2 for k, d in steps)
+        for k, d in steps:
+            reach -= (k * d - d) // 2
+            n += k * _per_group(tile + 2 * reach) * chunks
+    return n
+
+
+def _per_group(rows: int) -> int:
+    """64-row output tiles of a GEMM over `rows` rows on the busier
+    warpgroup."""
+    return -(-(-(-rows // 64)) // TC_GROUPS)
+
+
+def _pick_tile_by_cost(fits, cost, unit: int, n: int, rows: int, n_sm: int) -> int:
+    """The tile (a multiple of `unit` that `fits`) with the least cost per
+    SM over the grid: waves of one block per SM times `cost(tile)`, the
+    products of one block on its busier warpgroup; the larger tile on a
+    tie. 0 if none fits."""
+    best, best_cost = 0, None
+    for tile in range(unit, min(MAX_TILE, -(-n // unit) * unit) + 1, unit):
+        if not fits(tile):
+            continue
+        c = -(-rows * -(-n // tile) // n_sm) * cost(tile)
+        if best_cost is None or c <= best_cost:
+            best, best_cost = tile, c
+    return best
 
 
 def _pick_tile(fits, unit: int, n: int, rows: int, n_sm: int) -> int:
@@ -274,6 +399,46 @@ def fused_stage_fits(
     ) <= SMEM_LIMIT
 
 
+def _hashable(v):
+    return tuple(_hashable(x) for x in v) if isinstance(v, (list, tuple)) else v
+
+
+@functools.lru_cache(maxsize=1024)
+def _mrf_tile_tc(b, c, t, kernel_sizes, dilation_sizes, resblock_type, n_sm) -> int:
+    """mrf_fused's bf16 tile: the one with the fewest warpgroup products
+    per SM over the grid (multiples of 16 positions)."""
+    blocks, halo = stage_plan(kernel_sizes, dilation_sizes, resblock_type)
+    chunks = _r16(c) // 16
+    return _pick_tile_by_cost(
+        lambda tl: mrf_tc_fits(c, tl, halo), lambda tl: _chain_products(blocks, tl, chunks),
+        16, t, b, n_sm,
+    )
+
+
+@functools.lru_cache(maxsize=1024)
+def _fused_tile_tc(
+    b, v, c_in, c_out, u, u_in, nq, hpost, kernel_sizes, dilation_sizes, resblock_type, n_sm,
+) -> int:
+    """fused_upsample_mrf's bf16 tile (whole output frames, at least 16
+    samples): the one with the fewest warpgroup products per SM over the
+    grid, the transposed conv's (one GEMM per phase over the window's
+    input frames, the phases' tiles dealt to the warpgroups in turn) and
+    the chain's."""
+    blocks, halo = stage_plan(kernel_sizes, dilation_sizes, resblock_type)
+    halo += hpost
+    u_out = u * u_in
+
+    def cost(tl):
+        lay = fused_tc_layout(c_in, c_out, u, nq, tl, halo, hpost)
+        tconv = -(-u * -(-lay["n_fr"] // 64) // TC_GROUPS) * nq * lay["cip"] // 16
+        return tconv + _chain_products(blocks, lay["xs_w"], lay["cp"] // 16)
+
+    return _pick_tile_by_cost(
+        lambda tl: fused_tc_fits(c_in, c_out, u, nq, tl, halo, hpost), cost,
+        u_out * -(-16 // u_out), v * u_out, b, n_sm,
+    )
+
+
 def mrf_launch_config(
     b, c, t, kernel_sizes, dilation_sizes, resblock_type, k_max, esize, n_sm
 ) -> Dict[str, Any]:
@@ -289,16 +454,12 @@ def mrf_launch_config(
         def smem(tl):
             return mrf_smem_bytes_tc(c, tl, halo)
 
-        def fits(tl):
-            return mrf_tc_fits(c, tl, halo)
+        tile = _mrf_tile_tc(b, c, t, _hashable(kernel_sizes), _hashable(dilation_sizes), resblock_type, n_sm)
     else:
         def smem(tl):
             return mrf_smem_bytes(c, tl, halo, margin, rb1, esize)
 
-        def fits(tl):
-            return smem(tl) <= SMEM_LIMIT
-
-    tile = _pick_tile(fits, 16, t, b, n_sm)
+        tile = _pick_tile(lambda tl: smem(tl) <= SMEM_LIMIT, 16, t, b, n_sm)
     if tile == 0:
         raise ValueError(f"mrf_fused: C={c} with halo {halo} does not fit shared memory")
     return dict(
@@ -322,20 +483,20 @@ def fused_launch_config(
     u_out = u * u_in
     rb1 = resblock_type == "1"
 
+    unit = u_out * -(-16 // u_out)
     if esize == 2:
         def smem(tl):
             return fused_smem_bytes_tc(c_in, c_out, u, nq, tl, halo, hpost)
 
-        def fits(tl):
-            return fused_tc_fits(c_in, c_out, u, nq, tl, halo, hpost)
+        tile = _fused_tile_tc(
+            b, v, c_in, c_out, u, u_in, nq, hpost, _hashable(kernel_sizes),
+            _hashable(dilation_sizes), resblock_type, n_sm,
+        )
     else:
         def smem(tl):
             return fused_smem_bytes(c_in, c_out, u, nq, tl, halo, hpost, margin, rb1, esize)
 
-        def fits(tl):
-            return smem(tl) <= SMEM_LIMIT
-
-    tile = _pick_tile(fits, u_out * -(-16 // u_out), v * u_out, b, n_sm)
+        tile = _pick_tile(lambda tl: smem(tl) <= SMEM_LIMIT, unit, v * u_out, b, n_sm)
     if tile == 0:
         raise ValueError("fused_upsample_mrf: this stage does not fit shared memory")
     args = [
@@ -472,6 +633,63 @@ def recording_launches() -> Iterator[collections.Counter]:
 
 
 # ---------------------------------------------------------------------------
+# The bf16 kernels' weight layout
+# ---------------------------------------------------------------------------
+
+
+def tc_weight_layout(w: torch.Tensor) -> torch.Tensor:
+    """Per-tap weight slices (..., K, N) -> the bf16 kernels' layout
+    (..., Kp/8, Np/8, 8, 8): for each tap, K-major 8 x 8 core matrices
+    (row n of a core matrix holds 8 consecutive input channels), core
+    matrices along N 128 bytes apart and along K Np*16 bytes apart, as
+    the wgmma matrix descriptor of csrc/tc_common.cuh::gemm reads them;
+    K padded to a multiple of 16 and N to the product width
+    (tc_common.cuh::npad) with zeros. A tap's slice, or any run of 16*j
+    of its input channels, is one contiguous range: one bulk copy."""
+    *lead, k, n = w.shape
+    kp, np_ = _r16(k), _npad(_r16(n))
+    if not np_:
+        raise ValueError(f"the bf16 kernels take at most 256 output channels, got {n}")
+    out = w.new_zeros((*lead, kp, np_))
+    out[..., :k, :n] = w
+    out = out.reshape(*lead, kp // 8, 8, np_ // 8, 8).transpose(-3, -2)  # (.., kb, nb, kk, nn)
+    return out.transpose(-2, -1).contiguous()  # (.., kb, nb, nn, kk)
+
+
+_tc_cache: Dict[int, Tuple[Any, int, int, torch.Tensor]] = {}
+_tc_lock = threading.Lock()
+
+
+def tc_weights(w: torch.Tensor) -> torch.Tensor:
+    """tc_weight_layout(w), made once per weight tensor (again if w is
+    modified in place) and kept while w lives; its address and every
+    slice a bulk copy takes of it (taps, and the steps and stages cut from
+    them: multiples of 16 input channels) are checked on 16 bytes when it
+    is made. prepare_tm makes it for a voice's weights, so a call inside a
+    CUDA graph capture finds it made; making it there would record the
+    repacking in the graph, so that raises."""
+    key = id(w)
+    with _tc_lock:
+        hit = _tc_cache.get(key)
+    if hit is not None and hit[0]() is w and hit[1] == w._version and hit[2] == w.data_ptr():
+        return hit[3]
+    if w.is_cuda and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("the bf16 kernels' weight layout is made before a CUDA graph capture (prepare_tm)")
+    out = tc_weight_layout(w)
+    _check_bulk(out, (out.shape[-4] * out.shape[-3] * 128, out.shape[-3] * 256), "tc_weights")
+    ref = weakref.ref(w, lambda _, key=key: _tc_cache.pop(key, None))
+    with _tc_lock:
+        _tc_cache[key] = (ref, w._version, w.data_ptr(), out)
+    return out
+
+
+def _check_bulk(t: torch.Tensor, slice_bytes: Sequence[int], name: str) -> None:
+    """The bulk copies need 16-byte addresses and sizes."""
+    if t.data_ptr() % 16 or any(b % 16 for b in slice_bytes):
+        raise ValueError(f"{name}: the bf16 kernel's bulk copies need 16-byte aligned weights and slices")
+
+
+# ---------------------------------------------------------------------------
 # mrf_fused
 # ---------------------------------------------------------------------------
 
@@ -508,19 +726,18 @@ def mrf_fused(
     _check(packed_b, "packed_b", torch.float32, (n_convs, c, 1), dev)
     if c % 4 or c > 4 * THREADS:
         raise ValueError(f"mrf_fused needs C % 4 == 0 and C <= {4 * THREADS}, got {c}")
-    if dt == torch.bfloat16 and packed_w.data_ptr() % 16:
-        raise ValueError("mrf_fused (bf16) needs packed_w on a 16-byte boundary")
     cfg = mrf_launch_config(
         b, c, t, kernel_sizes, dilation_sizes, resblock_type, k_max,
         x_tm.element_size(), _n_sm(dev),
     )
+    w_arg = tc_weights(packed_w) if dt == torch.bfloat16 else packed_w
     fn = build(["mrf_fused"])["mrf_fused"].pt_mrf_fused
     out = torch.empty_like(x_tm)
     if t == 0 or b == 0:
         return out
     with torch.cuda.device(dev):
         rc = fn(
-            x_tm.data_ptr(), lengths.data_ptr(), packed_w.data_ptr(),
+            x_tm.data_ptr(), lengths.data_ptr(), w_arg.data_ptr(),
             packed_b.data_ptr(), out.data_ptr(), b, c, t, cfg["tile"],
             cfg["halo"], cfg["margin"], _DTYPE_CODE[dt],
             _int_array(cfg["plan"]), len(cfg["plan"]), cfg["smem"],
@@ -669,12 +886,11 @@ def fused_upsample_mrf(
             raise ValueError("post=True needs wpost")
         k_post = wpost.shape[0]
         _check(wpost, "wpost", dt, (k_post, c_out, 1), dev)
-    if dt == torch.bfloat16 and (wt.data_ptr() % 16 or wm.data_ptr() % 16):
-        raise ValueError("fused_upsample_mrf (bf16) needs wt and wm on 16-byte boundaries")
     cfg = fused_launch_config(
         b, v, c_in, c_out, u, u_in, q0, nq, k_post, kernel_sizes,
         dilation_sizes, resblock_type, k_max, x_tm.element_size(), _n_sm(dev),
     )
+    wt_arg, wm_arg = (tc_weights(wt), tc_weights(wm)) if dt == torch.bfloat16 else (wt, wm)
     fn = build(["fused_upsample_mrf"])["fused_upsample_mrf"].pt_fused_upsample_mrf
     out = torch.empty(
         (b, u * u_in if post else u * u_in * c_out, v), dtype=dt, device=dev
@@ -683,8 +899,8 @@ def fused_upsample_mrf(
         return out
     with torch.cuda.device(dev):
         rc = fn(
-            x_tm.data_ptr(), lengths.data_ptr(), wt.data_ptr(), bt.data_ptr(),
-            wm.data_ptr(), bm.data_ptr(), wpost.data_ptr() if post else None,
+            x_tm.data_ptr(), lengths.data_ptr(), wt_arg.data_ptr(), bt.data_ptr(),
+            wm_arg.data_ptr(), bm.data_ptr(), wpost.data_ptr() if post else None,
             out.data_ptr(), b, _int_array(cfg["args"]), len(cfg["args"]),
             _DTYPE_CODE[dt], _int_array(cfg["plan"]), len(cfg["plan"]),
             cfg["smem"], torch.cuda.current_stream(dev).cuda_stream,

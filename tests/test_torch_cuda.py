@@ -210,11 +210,16 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         V.mrf_fused(x, lengths.cpu(), w, b, **kw)
     with pytest.raises(ValueError, match="stage plan"):
         V.mrf_fused(x, lengths, w[:4], b[:4], **kw)
-    # bf16 weights off a 16-byte boundary (cp.async copies 16 or 8 bytes)
+    # bf16 weights off a 16-byte boundary: the kernel reads its own layout
+    # of them (on 16 bytes, as its bulk copies need), which the wrapper
+    # checks; one off a boundary is refused
     wb = torch.zeros(w.numel() + 1, dtype=torch.bfloat16, device=dev)[1:].view(w.shape)
+    wb.copy_(w)
     with pytest.raises(ValueError, match="16-byte"):
-        V.mrf_fused(x.bfloat16(), lengths, wb, b, **kw)
+        V._check_bulk(V.tc_weight_layout(wb).view(-1)[1:], (16,), "mrf_fused")
     x = torch.randn((2, 32, 50), generator=g).to(dev)
+    xb = x.bfloat16()
+    assert torch.equal(V.mrf_fused(xb, lengths, wb, b, **kw), V.mrf_fused(xb, lengths, w.bfloat16(), b, **kw))
     assert torch.equal(V.mrf_fused(x, lengths, w, b, **kw), V.mrf_fused(x, lengths, w, b, **kw))
     xb = x.bfloat16()
     assert torch.equal(V.mrf_fused(xb, lengths, w.bfloat16(), b, **kw), V.mrf_fused(xb, lengths, w.bfloat16(), b, **kw))

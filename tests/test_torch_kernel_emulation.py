@@ -2,8 +2,8 @@
 
 csrc/host_emulation.cpp compiles mrf_fused.cu and fused_upsample_mrf.cu
 with -DPT_HOST_EMULATION: each block runs phase by phase on the CPU
-(csrc/mrf_common.cuh), and the bf16 bodies' tensor-core warp
-instructions from their PTX fragment layouts (csrc/tc_common.cuh), so
+(csrc/mrf_common.cuh), and the bf16 bodies' warpgroup products, bulk
+copies and mbarriers as the PTX ISA defines them (csrc/tc_common.cuh), so
 the kernels' tiling, halos, masks, polyphase and plane index maps are
 checked here, where there is no GPU. Launch parameters come from the
 same functions the CUDA wrappers use (ops/cuda/vocoder.py::
@@ -11,10 +11,7 @@ mrf_launch_config / fused_launch_config); `n_sm` is varied to force
 several tile sizes per case.
 """
 
-import ctypes
 import hashlib
-import shutil
-import subprocess
 
 import numpy as np
 import pytest
@@ -22,6 +19,7 @@ import torch
 
 from piper_tpu_torch.models.vits.generator import _tm_phase_plan
 from piper_tpu_torch.ops.cuda import vocoder as V
+from torch_emu import build_emulation
 
 RB = {
     "1": ((3, 7), ((1, 3), (1, 3))),
@@ -36,24 +34,13 @@ TOL = {torch.float32: (2e-5, 0.0), torch.bfloat16: (3e-2, 2e-2)}
 
 @pytest.fixture(scope="module")
 def emu(tmp_path_factory):
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("no host C++ compiler to build the emulation")
-    out = tmp_path_factory.mktemp("emu") / "libemu.so"
-    subprocess.run(
-        [gxx, "-O2", "-std=c++17", "-shared", "-fPIC", "-DPT_HOST_EMULATION",
-         str(V.CSRC / "host_emulation.cpp"), "-o", str(out)],
-        check=True, capture_output=True,
-    )
-    lib = ctypes.CDLL(str(out))
-    lib.emu_mrf_fused.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-    ]
-    lib.emu_fused_upsample_mrf.argtypes = [ctypes.c_void_p] * 8 + [
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-    ]
-    return lib
+    return build_emulation(tmp_path_factory.mktemp("emu"))
+
+
+def _kernel_weights(w):
+    """The bf16 bodies read their weights in the kernel layout, as the
+    CUDA wrappers pass them (ops/cuda/vocoder.py::tc_weights)."""
+    return V.tc_weight_layout(w) if w.dtype == torch.bfloat16 else w
 
 
 def _blocks(rng, c, rb, unit_gain=False):
@@ -86,12 +73,13 @@ def _emu_mrf(lib, x, lengths, w, b, rb, n_sm, tile=None):
     if tile is not None:
         cfg.update(tile=tile, smem=V.mrf_smem_bytes_tc(c, tile, cfg["halo"]))
     out = torch.full_like(x, float("nan"))
+    wk = _kernel_weights(w)
     rc = lib.emu_mrf_fused(
-        x.data_ptr(), lengths.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
+        x.data_ptr(), lengths.data_ptr(), wk.data_ptr(), b.data_ptr(), out.data_ptr(),
         bsz, c, t, cfg["tile"], cfg["halo"], cfg["margin"], DTYPES[x.dtype],
         V._int_array(cfg["plan"]), len(cfg["plan"]), cfg["smem"],
     )
-    assert rc == 0, rc
+    assert rc == 0, (rc, lib.emu_fault())
     return out, cfg["tile"]
 
 
@@ -151,17 +139,17 @@ def test_mrf_fused_bf16_output_does_not_depend_on_the_tile(emu):
 
 
 def test_mrf_fused_bf16_refuses_a_layout_that_does_not_fit(emu):
-    """-3, as the CUDA entry returns, for a tile whose GEMMs need more
-    (16-row, 16-column) tiles than the block's warps hold, or whose layout
-    needs more shared memory than the launch gives."""
+    """-3, as the CUDA entry returns, for a tile whose layout needs more
+    shared memory than a block may use, or than the launch gives."""
     x, lengths, w, b = _medium_stage0(torch.bfloat16, seed=7)
     ks, ds = RB["2"]
     cfg = V.mrf_launch_config(3, 128, 200, ks, ds, "2", w.shape[1], 2, 1)
     assert not V.mrf_tc_fits(128, 112, 45) and V.mrf_tc_fits(128, 96, 45)
     out = torch.empty_like(x)
+    wk = _kernel_weights(w)
     for tile, smem in ((112, V.mrf_smem_bytes_tc(128, 112, 45)), (96, V.mrf_smem_bytes_tc(128, 96, 45) - 16)):
         rc = emu.emu_mrf_fused(
-            x.data_ptr(), lengths.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
+            x.data_ptr(), lengths.data_ptr(), wk.data_ptr(), b.data_ptr(), out.data_ptr(),
             3, 128, 200, tile, cfg["halo"], cfg["margin"], 1,
             V._int_array(cfg["plan"]), len(cfg["plan"]), smem,
         )
@@ -196,13 +184,14 @@ def _emu_stage(lib, x, lengths, s, *, u, u_in, rb, post, n_sm):
     )
     rows = u * u_in if post else u * u_in * c_out
     out = torch.full((bsz, rows, v), float("nan"), dtype=x.dtype)
+    wt, wm = _kernel_weights(s["wt"]), _kernel_weights(s["wm"])
     rc = lib.emu_fused_upsample_mrf(
-        x.data_ptr(), lengths.data_ptr(), s["wt"].data_ptr(), s["bt"].data_ptr(),
-        s["wm"].data_ptr(), s["bm"].data_ptr(), s["wpost"].data_ptr() if post else None,
+        x.data_ptr(), lengths.data_ptr(), wt.data_ptr(), s["bt"].data_ptr(),
+        wm.data_ptr(), s["bm"].data_ptr(), s["wpost"].data_ptr() if post else None,
         out.data_ptr(), bsz, V._int_array(cfg["args"]), len(cfg["args"]),
         DTYPES[x.dtype], V._int_array(cfg["plan"]), len(cfg["plan"]), cfg["smem"],
     )
-    assert rc == 0
+    assert rc == 0, (rc, lib.emu_fault())
     return out, cfg["tile"]
 
 

@@ -5,14 +5,28 @@ Every preset's stage split is decided on the float32 CUDA-core layout
 SPLIT_ESIZE). Both precisions run the same split, so the bf16 bodies must
 then fit every stage that split gives them: mrf_fused a tile of at least
 16 positions, fused_upsample_mrf one of at least one output frame, within
-the 232,448 bytes of shared memory one block may use.
+the 232,448 bytes of shared memory one block may use. The Python mirrors
+of the bf16 layouts (ops/cuda/vocoder.py: mrf_tc_layout, fused_tc_layout)
+equal the C layouts (the kernel sources built for the host,
+csrc/host_emulation.cpp) field by field, ring stages and barriers
+included, and the kernels' weight layout gives back every tap slice.
 """
 
+import ctypes
+
+import numpy as np
 import pytest
+import torch
 
 from piper_tpu_torch.config import ModelConfig
 from piper_tpu_torch.models.vits import generator as G
 from piper_tpu_torch.ops.cuda import vocoder as V
+from torch_emu import build_emulation
+
+QUALITIES = ["x-low", "low", "medium", "high"]
+# (rows, frames, SMs) of the launches each stage is sized for: one frame,
+# the kernel phase, a warm batch, one SM
+SHAPES = ((1, 1, 132), (3, 403, 132), (16, 490, 132), (1, 50, 1))
 
 
 def _fused_stages(cfg):
@@ -85,3 +99,69 @@ def test_bf16_mrf_launch_config_fits_every_mrf_stage(quality):
             assert got["smem"] <= V.SMEM_LIMIT
             assert got["smem"] == V.mrf_smem_bytes_tc(c, tile, halo)
             assert V.mrf_tc_fits(c, tile, halo)
+
+
+@pytest.fixture(scope="module")
+def emu(tmp_path_factory):
+    return build_emulation(tmp_path_factory.mktemp("layout"))
+
+
+def _mrf_stages(cfg):
+    start = G.tm_start_stage(cfg)
+    for i in range(start, G.fused_suffix_start(cfg, start)):
+        u0 = 1
+        for u in cfg.upsample_rates[: i + 1]:
+            u0 *= u
+        yield cfg.upsample_initial_channel // 2 ** (i + 1), u0
+
+
+@pytest.mark.parametrize("quality", QUALITIES)
+def test_bf16_layout_mirrors_equal_the_c_layouts(emu, quality):
+    cfg = ModelConfig.for_quality(quality, num_symbols=256)
+    ks = tuple(cfg.resblock_kernel_sizes)
+    ds = tuple(tuple(d) for d in cfg.resblock_dilation_sizes)
+    out = (ctypes.c_longlong * 32)()
+    n_checked = 0
+    for c, u0 in _mrf_stages(cfg):
+        for b, frames, n_sm in SHAPES:
+            got = V.mrf_launch_config(b, c, frames * u0, ks, ds, cfg.resblock, max(ks), 2, n_sm)
+            py = V.mrf_tc_layout(c, got["tile"], got["halo"])
+            n = emu.emu_mrf_tc_layout(c, got["tile"], got["halo"], out)
+            assert list(out[:n]) == list(py.values()), (c, got["tile"])
+            assert py["n_slots"] >= 3 and py["bytes"] == got["smem"]
+            n_checked += 1
+    for st in _fused_stages(cfg):
+        for b, frames, n_sm in SHAPES:
+            v = frames * (cfg.upsample_rates[0] if st["u_in"] == 1 else 1)
+            got = V.fused_launch_config(
+                b, v, st["c_in"], st["c_out"], st["u"], st["u_in"], st["q0"], st["nq"],
+                st["k_post"], ks, ds, cfg.resblock, max(ks), 2, n_sm,
+            )
+            args = got["args"]
+            py = V.fused_tc_layout(st["c_in"], st["c_out"], st["u"], st["nq"], got["tile"], args[10], args[11])
+            n = emu.emu_fused_tc_layout(V._int_array(args), len(args), out)
+            assert list(out[:n]) == list(py.values()), (st, got["tile"])
+            assert py["n_slots"] >= 3 and py["bytes"] == got["smem"]
+            n_checked += 1
+    assert n_checked >= 2 * len(SHAPES)
+
+
+@pytest.mark.parametrize("k,n", [(128, 128), (64, 64), (32, 32), (48, 24), (16, 12), (160, 160)])
+def test_kernel_weight_layout_gives_back_every_tap_slice(k, n):
+    """tc_weight_layout's K-major 8 x 8 core matrices, read back by the
+    byte offsets the wgmma descriptor uses (core matrices 128 bytes apart
+    along N, Np*16 along K), are packed_w's tap slices, zero-padded."""
+    rng = np.random.default_rng(k + n)
+    w = torch.from_numpy(rng.standard_normal((3, 2, k, n)).astype(np.float32)).to(torch.bfloat16)
+    lay = V.tc_weight_layout(w)
+    kp, np_ = -(-k // 16) * 16, V._npad(-(-n // 16) * 16)
+    assert lay.shape == (3, 2, kp // 8, np_ // 8, 8, 8) and lay.is_contiguous()
+    flat = lay.reshape(3, 2, -1)
+    kk, nn = np.meshgrid(np.arange(kp), np.arange(np_), indexing="ij")
+    offset = (kk // 8) * (np_ * 16) + (nn // 8) * 128 + (nn % 8) * 16 + (kk % 8) * 2
+    back = flat[:, :, torch.from_numpy(offset // 2)]
+    assert torch.equal(back[:, :, :k, :n], w)
+    assert not back[:, :, k:].float().any() and not back[:, :, :, n:].float().any()
+    # one stage of step_rows input channels is one contiguous range
+    step = V._step_rows(kp, np_)
+    assert step in (16, 32, 64) and kp % step == 0 and step * np_ * 2 <= 16384
