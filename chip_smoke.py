@@ -6,14 +6,17 @@
 Phases (any failure makes the exit code non-zero):
   1. the card (nvidia-smi name and power limit), torch and CUDA versions,
      the build of the CUDA kernels from piper_tpu_torch/csrc/, and the
-     SASS of both bf16 kernels (cuobjdump), which must hold HGMMA (wgmma)
-     and the bulk copy that feeds their weight ring (UBLKCP or UTMALDG),
-     and no HMMA (mma.sync);
+     SASS of both kernels (cuobjdump): every instantiation, float32
+     (3xTF32) and bf16 at every product width, must hold HGMMA (wgmma)
+     and the bulk copy that feeds its weight ring (UBLKCP or UTMALDG),
+     and no HMMA (mma.sync), and the libraries hold no other kernel;
   2. each kernel against its plain PyTorch version on the card, at the
      medium voice's shapes with ragged lengths, in float32 and bfloat16,
      with its time beside the plain version's, a cuDNN composition of
-     the same stage and the card's bound (fused_upsample_mrf also per
-     stage, each against the cuDNN composition of that stage alone);
+     the same stage (float32: TF32 off) and the card's bound (float32 at
+     a third of TF32's rate, 3xTF32, with the CUDA cores' float32 bound
+     beside it; fused_upsample_mrf also per stage, each against the
+     cuDNN composition of that stage alone);
   3. the main path through the CLI entry point
      (python -m piper_tpu_torch --batch --seed 1 on a random-weight
      medium voice): WAV checks, determinism, a row alone vs in a batch,
@@ -148,8 +151,8 @@ Phases (any failure makes the exit code non-zero):
      model=2 the monolithic plain decode within 1e-4 (float32) and 3e-2
      (bfloat16), the largest difference printed.
 
-Then the card's nvidia-smi line, one JSON line of per-kernel numbers
-(launches summed over the CLI main paths of phases 3 and 6, the entry
+Then the card's nvidia-smi line, one JSON line of per-kernel numbers,
+a row for each kernel and dtype (launches summed over the CLI main paths of phases 3 and 6, the entry
 points of phase 8, phase 9's batches and CLI runs, phase 10's batches
 and phase 11's mesh voices and vocode_data_parallel calls, both ranks'
 included), and the device line. Every phase prints its
@@ -164,7 +167,9 @@ Needs one CUDA card; prints no result and exits non-zero without one.
 measures the checkout in DIR instead (see measure()): run it on this
 checkout and on its parent, unpacked into a directory .gitignore lists,
 in turns within one call, to compare two versions on one card. Its
-line adds, where the checkout has them, each wire's transfer bytes per
+line holds both kernels alone in both dtypes at the kernel phase and at
+the long row, the parity long row's device time and voice conversion's
+device ms per audio-second, and adds, where the checkout has them, each wire's transfer bytes per
 audio-second, the window's batches by path (the fused ones among them),
 the graphs after the window (count, MiB, plan graphs, the seconds of
 each capture made in the window) and python -m piper_tpu_torch.tools.profile_stages's stage
@@ -184,6 +189,7 @@ import sys
 import tempfile
 import time
 import wave
+from collections import Counter
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -322,11 +328,17 @@ def work_mrf(cfg, c, n_valid):
     return 2 * taps * c * c * n_valid
 
 
+# the mangled template argument of each dtype's instantiations
+SASS_DTYPES = {"float32": "IfLi", "bfloat16": "I13__nv_bfloat16Li"}
+WIDTHS = 5  # product widths each dtype is built for (16..256)
+
+
 def sass_tensor_cores(V) -> None:
-    """Phase 1: the SASS of each bf16 kernel, at every product width it
-    is built for, holds HGMMA (wgmma) and the bulk copy that feeds its
+    """Phase 1: the SASS of each kernel, in both dtypes and at every
+    product width it is built for, holds HGMMA (wgmma: bf16, or the tf32
+    of float32's 3xTF32 products) and the bulk copy that feeds its
     weight ring (UBLKCP, or UTMALDG for a tensor-map load), and no HMMA
-    (mma.sync)."""
+    (mma.sync); no other kernel (no CUDA-core body) is in the library."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     ops = ("HGMMA", "HMMA", "UBLKCP", "UTMALDG")
     for lib, kernel in (("mrf_fused", "mrf_fused_tc_kernel"), ("fused_upsample_mrf", "fused_stage_tc_kernel")):
@@ -341,11 +353,14 @@ def sass_tensor_cores(V) -> None:
                     funcs[name][op] += op in line
         for fn, n in funcs.items():
             print(f"  SASS {fn}: " + ", ".join(f"{n[op]} {op}" for op in ops))
-        tc = [n for fn, n in funcs.items() if kernel in fn]
-        check(res.returncode == 0 and len(tc) > 0
-              and all(n["HGMMA"] > 0 and n["UBLKCP"] + n["UTMALDG"] > 0 and n["HMMA"] == 0 for n in tc),
-              f"bf16 {lib} ({kernel}, {len(tc)} widths) runs wgmma fed by bulk copies: HGMMA and "
-              f"UBLKCP/UTMALDG in its SASS, no HMMA")
+        check(res.returncode == 0 and all(kernel in fn for fn in funcs),
+              f"{lib}: every kernel in its library is {kernel} ({len(funcs)} functions)")
+        for dname, tag in SASS_DTYPES.items():
+            tc = [n for fn, n in funcs.items() if kernel + tag in fn]
+            check(res.returncode == 0 and len(tc) == WIDTHS
+                  and all(n["HGMMA"] > 0 and n["UBLKCP"] + n["UTMALDG"] > 0 and n["HMMA"] == 0 for n in tc),
+                  f"{dname} {lib} ({kernel}, {len(tc)} of {WIDTHS} widths) runs wgmma fed by bulk copies: "
+                  f"HGMMA and UBLKCP/UTMALDG in its SASS, no HMMA")
 
 
 def phase_kernels(cfg, params_np, peaks, frames=(403, 396, 5), dtypes=None):
@@ -441,7 +456,10 @@ def phase_kernels(cfg, params_np, peaks, frames=(403, 396, 5), dtypes=None):
             bytes2 = (y_k.numel() + w_k.numel() + tm["ups"][2].numel() + w2[0].numel()
                       + tm["post"].numel()) * esize + 4 * (w2[1].numel() + c2)
             bytes12 = bytes1 + bytes2
-        peak = f32_peak if dtype == torch.float32 else bf16_peak
+        # float32 runs 3xTF32 (three TF32 products a float32 product): its
+        # bound is a third of TF32's rate, bf16's / 6; the CUDA cores'
+        # float32 rate is printed beside it
+        peak = bf16_peak / 6 if dtype == torch.float32 else bf16_peak
         for sname, ms, lib, flops, nbytes in (("stage 1", ms1, lib_s1, flops1, bytes1),
                                               ("stage 2", ms2, lib_s2, flops2, bytes2)):
             bound = max(flops / peak, nbytes / bw) * 1e3
@@ -458,7 +476,7 @@ def phase_kernels(cfg, params_np, peaks, frames=(403, 396, 5), dtypes=None):
         ):
             t_ops, t_bytes = flops / peak * 1e3, nbytes / bw * 1e3
             row = {
-                "name": kname, "route": "cuda", "source": src, "replaces": rep,
+                "name": kname, "dtype": dname, "route": "cuda", "source": src, "replaces": rep,
                 "max_abs_err": err, "ms": ms, "plain_ms": plain,
                 "bound_ms": max(t_ops, t_bytes),
                 "bound_by": "operations" if t_ops >= t_bytes else "bytes",
@@ -468,7 +486,10 @@ def phase_kernels(cfg, params_np, peaks, frames=(403, 396, 5), dtypes=None):
                   f"plain {plain:.3f} ms, cuDNN composition {lib:.3f} ms, bound "
                   f"{row['bound_ms']:.4f} ms ({row['bound_by']}; {flops / 1e9:.2f} GFLOP, "
                   f"{nbytes / 1e6:.2f} MB), {flops / ms / 1e9:.1f} TFLOP/s achieved"
-                  + (f" (stage 1 {ms1:.3f} ms + stage 2 {ms2:.3f} ms)" if kname != "mrf_fused" else ""),
+                  + (f" (stage 1 {ms1:.3f} ms + stage 2 {ms2:.3f} ms)" if kname != "mrf_fused" else "")
+                  + (f"; at 3xTF32's {peak / 1e12:.0f} TFLOP/s, the CUDA cores' {f32_peak / 1e12:.0f} TFLOP/s "
+                     f"of float32 would bound it at {max(flops / f32_peak, nbytes / bw) * 1e3:.4f} ms"
+                     if dtype == torch.float32 else ""),
                   flush=True)
             results[(kname, dname)] = row
     return results
@@ -534,15 +555,14 @@ def phase_main_path(tmp: Path, cfg, params_np, card: str):
 
     voice = str(tmp / "voice.npz")
     out_a, out_b, out_1 = tmp / "a", tmp / "b", tmp / "one"
-    V.mrf_fused.launches = 0
-    V.fused_upsample_mrf.launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     run_cli(["-m", voice, "-d", str(out_a), "--batch", "--seed", "1"], TEXTS)
     cli_s = time.perf_counter() - t0
-    launches = {"mrf_fused": V.mrf_fused.launches,
-                "fused_upsample_mrf": V.fused_upsample_mrf.launches}
-    print(f"main path (CLI --batch, {len(TEXTS)} lines, cold): {cli_s:.3f} s, launches {launches}")
-    check(launches["mrf_fused"] >= 1 and launches["fused_upsample_mrf"] == 2 * launches["mrf_fused"],
+    n_mrf, n_fused = read_counts()
+    launches = dtype_counts()
+    print(f"main path (CLI --batch, {len(TEXTS)} lines, cold): {cli_s:.3f} s, launches {dict(launches)}")
+    check(n_mrf >= 1 and n_fused == 2 * n_mrf,
           "main path launched mrf_fused once and fused_upsample_mrf twice per vocode")
 
     wavs = sorted(out_a.glob("*.wav"))
@@ -864,8 +884,7 @@ def phase_benchmark(tmp: Path, card: str) -> None:
     rng = np.random.default_rng(0)
     lines = [json.dumps({"phoneme_ids": [1] + [int(x) for x in rng.integers(32, 120, 40 + 20 * i)] + [2]})
              for i in range(8)]
-    V.mrf_fused.launches = 0
-    V.fused_upsample_mrf.launches = 0
+    zero_counts()
     # captures made in the benchmark's process, and how many of them its
     # warm-up had made: its timed runs (default --repeat 1) must only replay
     captures, warmed = [], []
@@ -1007,8 +1026,7 @@ def phase_serving(cfg, params_np, card, peaks):
 
         def reset_counts():
             submits.clear()
-            V.mrf_fused.launches = 0
-            V.fused_upsample_mrf.launches = 0
+            zero_counts()
 
         voice.submit = timed_submit
 
@@ -1093,8 +1111,7 @@ def phase_serving(cfg, params_np, card, peaks):
         # /stream: cold (first stream of the process), then STREAMS warm
         q = f"/stream?text={urllib.parse.quote(STREAM_TEXT)}&seed=4"
         _, cold_chunks, cold_first, cold_total = http_stream(port, q)
-        V.mrf_fused.launches = 0
-        V.fused_upsample_mrf.launches = 0
+        zero_counts()
         graphs0 = dict(voice.graphs.stats)
         headers, chunks, first, total = http_stream(port, q)
         n_mrf, n_fused = V.mrf_fused.launches, V.fused_upsample_mrf.launches
@@ -1159,17 +1176,50 @@ LONG_FRAMES = 12000  # the long row's target: ~3 x the largest frame bucket
 VOICE_NAME = "xx_XX-smoke-medium"
 
 
+KERNELS = ("mrf_fused", "fused_upsample_mrf")
+DTYPES = ("float32", "bfloat16")
+
+
 def zero_counts() -> None:
+    """Set both wrappers' launch counts, and their counts by dtype, to 0."""
     from piper_tpu_torch.ops.cuda import vocoder as V
 
-    V.mrf_fused.launches = 0
-    V.fused_upsample_mrf.launches = 0
+    for k in KERNELS:
+        wrapper = getattr(V, k)
+        wrapper.launches = 0
+        for c in wrapper.by_dtype.values():
+            c.launches = 0
 
 
 def read_counts():
+    """(mrf_fused, fused_upsample_mrf) launches since zero_counts()."""
     from piper_tpu_torch.ops.cuda import vocoder as V
 
     return V.mrf_fused.launches, V.fused_upsample_mrf.launches
+
+
+def dtype_counts():
+    """The launches since zero_counts() by (kernel, dtype), a Counter
+    that a phase adds to its sums (the `kernels` line's rows)."""
+    from collections import Counter
+
+    from piper_tpu_torch.ops.cuda import vocoder as V
+
+    return Counter({(k, d): getattr(V, k).by_dtype[d].launches for k in KERNELS for d in DTYPES})
+
+
+def counts_array(counts):
+    """dtype_counts() as an array (KERNELS x DTYPES order), for a rank's
+    results file; counts_from_array reads it back."""
+    import numpy as np
+
+    return np.array([counts[(k, d)] for k in KERNELS for d in DTYPES])
+
+
+def counts_from_array(a):
+    from collections import Counter
+
+    return Counter({(k, d): int(n) for (k, d), n in zip([(k, d) for k in KERNELS for d in DTYPES], a)})
 
 
 def write_published(tmp: Path, cfg, params_np):
@@ -1636,7 +1686,7 @@ def phase_variant(tmp: Path, name: str, path: Path, cfg, params_np, card: str, h
         t0 = time.perf_counter()
         run_cli(["-m", str(path), "-d", str(outs[0]), "--batch", "--seed", "1", "-q"], TEXTS)
         cli_s = time.perf_counter() - t0
-        cli_launches = dict(zip(("mrf_fused", "fused_upsample_mrf"), read_counts()))
+        cli_launches = dtype_counts()
         launches_ok("the CLI (--batch, 4 lines)", *read_counts(), sum(decodes))
         run_cli(["-m", str(path), "-d", str(outs[1]), "--batch", "--seed", "1", "-q"], TEXTS)
     wavs = sorted(outs[0].glob("*.wav"))
@@ -2279,8 +2329,7 @@ def builder_export(tmp: Path, card: str, launches: dict) -> Path:
             _, n_mrf, n_fused, decodes = counted_run(lambda: run_cli(argv, TEXTS))
             runs[fmt] = sorted(out.glob("*.wav"))
             if fmt == "onnx":
-                launches["mrf_fused"] += n_mrf
-                launches["fused_upsample_mrf"] += n_fused
+                launches += dtype_counts()
                 check(decodes >= 1 and n_mrf == decodes and n_fused == 2 * decodes,
                       f"CLI -m exported.onnx ({precision}): mrf_fused {n_mrf}, fused_upsample_mrf "
                       f"{n_fused} launches for {decodes} decodes")
@@ -2361,8 +2410,7 @@ def builder_harness(onnx: Path, tmp: Path, card: str, launches: dict) -> None:
               f"(RTF with it {rtf_d:.5f}; first call of this process's voice, cold)"
               f"  [{card if device == 'cuda' else 'host CPU'}]", flush=True)
         if device == "cuda":
-            launches["mrf_fused"] += n_mrf
-            launches["fused_upsample_mrf"] += n_fused
+            launches += dtype_counts()
             check(decodes >= 1 and n_mrf == decodes and n_fused == 2 * decodes,
                   f"infer ({precision}, denoiser {strength}): mrf_fused {n_mrf}, fused_upsample_mrf "
                   f"{n_fused} launches for {decodes} decodes")
@@ -2395,25 +2443,9 @@ def builder_voice_conversion(tmp: Path, card: str, launches: dict) -> None:
     and on the CPU (1e-3); 1 + 2 launches per conversion; the warm wall
     and device ms per audio-second of voice_convert_audio."""
     import numpy as np
-    import torch
-
-    from piper_tpu_torch.models.vits import generator as G
-    from piper_tpu_torch.ops import prng
-    from piper_tpu_torch.runtime.voice import random_voice_config
-    from piper_tpu_torch.runtime.voice_conversion import voice_convert_audio
-    from piper_tpu_torch.runtime.wav import read_wav as read_pcm
-    from piper_tpu_torch.weights.bridge import params_from_jax
-    from piper_tpu_torch.weights.native import load_native
 
     d = tmp / "vc"
-    d.mkdir()
-    model = d / "voice.npz"
-    shutil.copy(MS2_VOICE, model)
-    tree, cfg = load_native(str(model))
-    (d / "voice.npz.json").write_text(json.dumps(random_voice_config(cfg).to_dict()))
-    src = d / "speaker0.wav"
-    run_cli(["-m", str(model), "-f", str(src), "--seed", "1", "-s", "0", "-q"], [VC_TEXT])
-    sr, pcm = read_pcm(src)
+    model, src, tree, cfg, sr, pcm = conversion_source(d)
     audio_s = len(pcm) / sr
     outs = {}
     for run, device in (("card", "cuda"), ("card again", "cuda"), ("cpu", "cpu")):
@@ -2426,8 +2458,7 @@ def builder_voice_conversion(tmp: Path, card: str, launches: dict) -> None:
               f"at {sr} Hz, 0 -> 1): {wall:.3f} s, cold (load and first call included)"
               f"  [{card if device == 'cuda' else 'host CPU'}]", flush=True)
         if device == "cuda":
-            launches["mrf_fused"] += n_mrf
-            launches["fused_upsample_mrf"] += n_fused
+            launches += dtype_counts()
             check(n_mrf == 1 and n_fused == 2,
                   f"voice conversion ({run}): mrf_fused {n_mrf}, fused_upsample_mrf {n_fused} launches "
                   f"for one conversion")
@@ -2438,7 +2469,43 @@ def builder_voice_conversion(tmp: Path, card: str, launches: dict) -> None:
           f"voice conversion: card vs CPU, {card_a[0].size if ok else 0} samples, max_abs_err {err:.3e} "
           f"(atol 1e-3)")
     check(outs["card"][1] == outs["card again"][1], "voice conversion: --seed 3 twice, the same bytes")
-    # warm: wall and device time of the conversion alone
+    wall_ms, dev_ms = conversion_costs(tree, cfg, pcm)
+    print(f"phase 8: voice conversion warm, x-low trained, {audio_s:.2f} audio-s: wall {wall_ms:.2f} "
+          f"ms ({wall_ms / audio_s:.2f} ms per audio-s), device {dev_ms:.2f} ms "
+          f"({dev_ms / audio_s:.2f} ms per audio-s)  [{card}]", flush=True)
+
+
+def conversion_source(d: Path):
+    """The trained two-speaker x-low voice copied into d with a sidecar,
+    and speaker 0 saying VC_TEXT through the CLI (--seed 1): (model,
+    source WAV, its tree, its config, sample rate, int16 samples)."""
+    from piper_tpu_torch.runtime.voice import random_voice_config
+    from piper_tpu_torch.runtime.wav import read_wav as read_pcm
+    from piper_tpu_torch.weights.native import load_native
+
+    d.mkdir()
+    model = d / "voice.npz"
+    shutil.copy(MS2_VOICE, model)
+    tree, cfg = load_native(str(model))
+    (d / "voice.npz.json").write_text(json.dumps(random_voice_config(cfg).to_dict()))
+    src = d / "speaker0.wav"
+    run_cli(["-m", str(model), "-f", str(src), "--seed", "1", "-s", "0", "-q"], [VC_TEXT])
+    sr, pcm = read_pcm(src)
+    return model, src, tree, cfg, sr, pcm
+
+
+def conversion_costs(tree, cfg, pcm):
+    """Warm wall and device ms of voice_convert_audio (speaker 0 -> 1,
+    key 3) on these samples, float32 through both kernels: (the best of
+    three walls, the device busy time of one call)."""
+    import numpy as np
+    import torch
+
+    from piper_tpu_torch.models.vits import generator as G
+    from piper_tpu_torch.ops import prng
+    from piper_tpu_torch.runtime.voice_conversion import voice_convert_audio
+    from piper_tpu_torch.weights.bridge import params_from_jax
+
     params = params_from_jax(tree, cfg, "cuda", torch.float32)
     tm = G.prepare_tm(params["dec"], cfg, torch.float32)
     x = pcm.astype(np.float32) / 32768.0
@@ -2449,16 +2516,13 @@ def builder_voice_conversion(tmp: Path, card: str, launches: dict) -> None:
         t0 = time.perf_counter()
         fn()  # ends in the copy of the samples to the host
         walls.append(time.perf_counter() - t0)
-    dev_ms = busy_ms(fn)
-    print(f"phase 8: voice conversion warm, x-low trained, {audio_s:.2f} audio-s: wall {min(walls) * 1e3:.2f} "
-          f"ms ({min(walls) * 1e3 / audio_s:.2f} ms per audio-s), device {dev_ms:.2f} ms "
-          f"({dev_ms / audio_s:.2f} ms per audio-s)  [{card}]", flush=True)
+    return min(walls) * 1e3, busy_ms(fn)
 
 
 def phase_voice_builder(tmp: Path, card: str) -> dict:
     """Phase 8 (see the module docstring); returns the kernels' launches
     on its entry points' runs on the card."""
-    launches = {"mrf_fused": 0, "fused_upsample_mrf": 0}
+    launches = Counter()
     data = builder_preprocess(tmp, card)
     builder_train(data, tmp, card)
     onnx = builder_export(tmp, card, launches)
@@ -2554,7 +2618,7 @@ def phase_speculative(tmp: Path, cfg, params_np, variants: Path, card: str) -> d
     u = cfg.upsample_factor
     rows = spec_rows(cfg.num_symbols)
     syn = SynthesisConfig(seed=3)
-    launches = {"mrf_fused": 0, "fused_upsample_mrf": 0}
+    launches = Counter()
 
     def counted(fn):
         """fn() with the kernels' launches counted from 0 and added to the
@@ -2562,8 +2626,7 @@ def phase_speculative(tmp: Path, cfg, params_np, variants: Path, card: str) -> d
         zero_counts()
         out = fn()
         n_mrf, n_fused = read_counts()
-        launches["mrf_fused"] += n_mrf
-        launches["fused_upsample_mrf"] += n_fused
+        launches.update(dtype_counts())
         return out, n_mrf, n_fused
 
     medium = TorchVoice(params_np, cfg, _voice_cfg(cfg), precision="fast", device="cuda", seed=0)
@@ -2717,7 +2780,7 @@ def phase_fusion(cfg, params_np, variants: Path, card: str) -> dict:
     from piper_tpu_torch.runtime.voice import TorchVoice
     from piper_tpu_torch.weights.native import load_native
 
-    launches = {"mrf_fused": 0, "fused_upsample_mrf": 0}
+    launches = Counter()
     voices = [("medium", params_np, cfg, None)]
     for name, path in (("VITS2 (post perturbed)", variants / "vits2.npz"),
                        ("trained two-speaker x-low", TRAINED_MS2)):
@@ -2746,8 +2809,7 @@ def phase_fusion(cfg, params_np, variants: Path, card: str) -> dict:
                 t_sub = time.perf_counter() - t_sub
                 out = voice.collect(handle)
                 n = list(read_counts())
-                launches["mrf_fused"] += n[0]
-                launches["fused_upsample_mrf"] += n[1]
+                launches.update(dtype_counts())
                 return out, handle, t_sub, n
 
             per_decode = [batch("plan", s) for s in seeds]
@@ -2821,13 +2883,15 @@ def parallel_inputs(cfg, seed: int = 5):
 def parallel_voice_batches(voice, rows, syn, seeds):
     """An exact batch, then the same rows again (speculative): (exact,
     speculative audio, the second took the speculative path, decodes of
-    both, (mrf_fused, fused_upsample_mrf) launches)."""
+    both, (mrf_fused, fused_upsample_mrf) launches, launches by kernel
+    and dtype)."""
     zero_counts()
     first = voice.submit(rows, syn=syn, row_seeds=seeds)
     exact = voice.collect(first)
     second = voice.submit(rows, syn=syn, row_seeds=seeds)
     spec = voice.collect(second)
-    return exact, spec, "spec" in second, first["decodes"] + second["decodes"], list(read_counts())
+    return (exact, spec, "spec" in second, first["decodes"] + second["decodes"], list(read_counts()),
+            dtype_counts())
 
 
 def step_param_spread(ref, got):
@@ -2879,6 +2943,7 @@ def parallel_rank(rank: int, out: Path) -> int:
             zero_counts()
             res["vdp"] = vocode_data_parallel(params, z, mask, None, cfg=cfg, mesh=data).cpu().numpy()
             res["vdp_launches"] = np.array(read_counts())
+            res["vdp_dtypes"] = counts_array(dtype_counts())
             for dtype in (torch.float32, torch.bfloat16):
                 p = params_from_jax(params_np, cfg, "cuda", dtype)
                 res[f"sv_{str(dtype)[6:]}"] = sharded_vocode(
@@ -2888,10 +2953,11 @@ def parallel_rank(rank: int, out: Path) -> int:
         for wire in ("int16", "mulaw"):
             voice = TorchVoice(params_np, cfg, _voice_cfg(cfg), precision="fast", seed=0,
                                wire_format=wire, mesh=data)
-            exact, spec, took, decodes, n = parallel_voice_batches(voice, rows, _syn(3), list(range(len(rows))))
+            exact, spec, took, decodes, n, by = parallel_voice_batches(voice, rows, _syn(3), list(range(len(rows))))
             for i, (a, b) in enumerate(zip(exact, spec)):
                 res[f"voice_{wire}_exact_{i}"], res[f"voice_{wire}_spec_{i}"] = a, b
             res[f"voice_{wire}_meta"] = np.array([took, decodes, *n])
+            res[f"voice_{wire}_dtypes"] = counts_array(by)
             del voice
         np.savez(out / f"rank{rank}.npz", **res)
     finally:
@@ -2932,7 +2998,7 @@ def phase_parallel(tmp: Path, cfg, params_np, card: str) -> dict:
     from piper_tpu_torch.weights.bridge import params_from_jax
     from piper_tpu_torch.weights.native import save_native
 
-    launches = {"mrf_fused": 0, "fused_upsample_mrf": 0}
+    launches = Counter()
     out = tmp / "parallel"
     out.mkdir()
     save_native(str(out / "voice.npz"), params_np, cfg)
@@ -2961,8 +3027,7 @@ def phase_parallel(tmp: Path, cfg, params_np, card: str) -> dict:
                 zero_counts()
                 got = vocode_data_parallel(params, z, mask, None, cfg=cfg, mesh=mesh)
                 n = list(read_counts())
-                launches["mrf_fused"] += n[0]
-                launches["fused_upsample_mrf"] += n[1]
+                launches += dtype_counts()
                 refs["vdp"] = got.cpu().numpy()
                 check(torch.equal(got, ref) and n == [1, 2],
                       f"world size 1: vocode_data_parallel gives synthesizer_vocode's bits "
@@ -2982,9 +3047,8 @@ def phase_parallel(tmp: Path, cfg, params_np, card: str) -> dict:
                                        wire_format=wire, **kw)
                     outs[name] = parallel_voice_batches(voice, rows, _syn(3), seeds)
                     del voice
-                (e1, s1, took1, _d, _n), (e2, s2, took2, d2, n2) = outs["one device"], outs["mesh"]
-                launches["mrf_fused"] += n2[0]
-                launches["fused_upsample_mrf"] += n2[1]
+                (e1, s1, took1, _d, _n, _b), (e2, s2, took2, d2, n2, b2) = outs["one device"], outs["mesh"]
+                launches += b2
                 refs[f"voice_{wire}"] = (e1, s1)
                 same = sum(np.array_equal(a, b) for a, b in zip(e1 + s1, e2 + s2))
                 check(took1 and took2 and same == 2 * len(rows) and n2 == [d2, 2 * d2],
@@ -3038,8 +3102,7 @@ def phase_parallel(tmp: Path, cfg, params_np, card: str) -> dict:
     for r in range(2):
         res = np.load(out / f"rank{r}.npz")
         n = [int(v) for v in res["vdp_launches"]]
-        launches["mrf_fused"] += n[0]
-        launches["fused_upsample_mrf"] += n[1]
+        launches += counts_from_array(res["vdp_dtypes"])
         check(np.array_equal(res["vdp"], refs["vdp"]) and n == [1, 2],
               f"gloo rank {r} of 2: vocode_data_parallel at data=2 gives the one-rank bits on every row "
               f"({np.array_equal(res['vdp'], refs['vdp'])}), launches {n} (1 + 2)")
@@ -3050,8 +3113,7 @@ def phase_parallel(tmp: Path, cfg, params_np, card: str) -> dict:
                                 f"{err:.3g} (limit {limit})")
         for wire in ("int16", "mulaw"):
             took, decodes, *n = (int(v) for v in res[f"voice_{wire}_meta"])
-            launches["mrf_fused"] += n[0]
-            launches["fused_upsample_mrf"] += n[1]
+            launches += counts_from_array(res[f"voice_{wire}_dtypes"])
             e1, s1 = refs[f"voice_{wire}"]
             same = sum(np.array_equal(a, res[f"voice_{wire}_{kind}_{i}"])
                        for kind, ref in (("exact", e1), ("spec", s1)) for i, a in enumerate(ref))
@@ -3114,8 +3176,11 @@ def measure(root: str) -> int:
     after warmup((1, 16), full=True), the serving window of phase 4 under
     the server's default grouping with submit's host time by method, its
     profiled rerun's idle share, and STREAMS warm /streams. Also the two
-    bf16 kernels' device times in the warm batch, and each alone at the
-    kernel phase's rows and at the long row's 11,938 frames."""
+    bf16 kernels' device times in the warm batch, each kernel alone in
+    both dtypes at the kernel phase's rows and at the long row's 11,938
+    frames (float32's cuDNN composition with TF32 off), the long row's
+    device time in parity precision (float32 through both kernels), and
+    voice conversion's warm device ms per audio-second (float32)."""
     import urllib.parse
 
     import numpy as np
@@ -3125,6 +3190,8 @@ def measure(root: str) -> int:
     sys.path.insert(0, str(Path(root).resolve()))
     from piper_tpu_torch.ops.cuda import vocoder as V
     from piper_tpu_torch.runtime import voice as RV
+
+    RV.tf32_off()  # float32 without TF32, in the cuDNN compositions too
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True, timeout=60).stdout.strip()
@@ -3180,14 +3247,27 @@ def measure(root: str) -> int:
         "kernels_ms": {k: sum(e.self_device_time_total for e in events if k in e.key) / 1e3
                        for k in ("mrf_fused_tc_kernel", "fused_stage_tc_kernel")},
     }
-    # both bf16 kernels alone at the kernel phase's rows and at the long
-    # row's length (phase 2's timings: kernel, cuDNN composition, bound)
+    # both kernels alone in both dtypes at the kernel phase's rows and at
+    # the long row's length (phase 2's timings: kernel, cuDNN
+    # composition, bound)
     peaks = peaks_for(torch.cuda.get_device_name(0))[1]
     out["kernels"] = {}
     for label, frames in (("kernel_phase", (403, 396, 5)), ("long_row", (11938,))):
-        res = phase_kernels(cfg, params_np, peaks, frames=frames, dtypes=(torch.bfloat16,))
-        out["kernels"][label] = {k: {f: r[f] for f in ("ms", "library_ms", "bound_ms", "max_abs_err")}
-                                 for (k, _), r in res.items()}
+        res = phase_kernels(cfg, params_np, peaks, frames=frames)
+        out["kernels"][label] = {f"{k}_{d}": {f: r[f] for f in ("ms", "library_ms", "bound_ms", "max_abs_err")}
+                                 for (k, d), r in res.items()}
+    # the long row in parity precision: its decode's device time
+    parity = RV.TorchVoice(params_np, cfg, _voice_cfg(cfg), precision="parity", device="cuda", seed=0)
+    ids, syn, frames = long_row(parity, LONG_FRAMES)
+    out["parity_long_row"] = {"frames": frames, "device_ms": busy_ms(
+        lambda: parity.collect(parity.submit([ids], syn=syn)))}
+    del parity
+    with tempfile.TemporaryDirectory() as tmp:
+        _, _, tree, vcfg, sr, pcm = conversion_source(Path(tmp) / "vc")
+        wall_ms, dev_ms = conversion_costs(tree, vcfg, pcm)
+        audio_s = len(pcm) / sr
+        out["conversion"] = {"audio_s": audio_s, "wall_ms_per_audio_s": wall_ms / audio_s,
+                             "device_ms_per_audio_s": dev_ms / audio_s}
     # the transfer's bytes per audio-second of the warm batch on each wire
     wires = {}
     for wire in ("int16", "mulaw") if hasattr(fast, "set_wire_format") else ("int16",):
@@ -3354,12 +3434,13 @@ def main(argv) -> int:
                   file=stream, flush=True)
         return 1
     kernels = []
-    for kname in ("mrf_fused", "fused_upsample_mrf"):
-        row = dict(results[(kname, "bfloat16")])
-        row["launches"] = launches[kname]
-        for key in ("gflop", "mbytes"):
-            row.pop(key)
-        kernels.append(row)
+    for kname in KERNELS:
+        for dname in DTYPES:
+            row = dict(results[(kname, dname)])
+            row["launches"] = launches[(kname, dname)]
+            for key in ("gflop", "mbytes"):
+                row.pop(key)
+            kernels.append(row)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

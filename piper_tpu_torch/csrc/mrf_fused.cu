@@ -24,82 +24,50 @@
 // and its halo (the chain's receptive field, 45 positions each side on the
 // medium voice) stay in shared memory for the whole chain, so device memory
 // sees one read of x per resblock and one write of the result. A block
-// whose tile starts past its row's length only writes zeros. Two bodies:
-//  - bfloat16 (mrf_block_tc, the serving precision): the MRF chain of
-//    tc_common.cuh (mrf_chain_tc, shared with fused_upsample_mrf.cu), every
-//    conv an implicit GEMM of warpgroup products (wgmma m64nNk16, bf16 in,
-//    f32 sums in registers; N = round16(C) rounded up to a power of two)
-//    over position-major windows with rows of round16(C) + 8 bf16. A is
-//    loaded into registers with ldmatrix, so a dilated tap is a row shift
-//    of the A rows. The weights (1.4 MB in bf16 at C=128, far over the
-//    227 KB a block may hold) flow from L2 through a ring of 3-4 shared
-//    stages (64 input channels of one tap each at C=128), each filled by
-//    one bulk copy of the Tensor Memory Accelerator that completes on an
-//    mbarrier; the stages are in the kernel layout the wgmma descriptor
-//    reads (K-major 8 x 8 core matrices), made once per weight tensor by
-//    the wrapper. Two warpgroups each own 64-row output tiles; each conv
-//    computes only the rows the rest of its resblock still reads, so the
-//    last conv of a resblock computes just the tile. At C=128 a tile of
-//    up to 96 positions fits (w = 186 window rows: 3 output tiles on the
-//    widest conv); the wrapper picks the tile that costs the fewest
-//    products per SM over the grid. The window is loaded from x at each
-//    resblock, transposed to position-major with reads along T; the
-//    output is written along T.
-//  - float32 (mrf_block, parity precision): f32 FMAs on the CUDA cores over
-//    channel-major windows; the weights are streamed from L2 per conv as
-//    vector loads shared by the lanes of a warp, and each thread keeps a
-//    4-channel x 8-position register tile of f32 accumulators.
+// whose tile starts past its row's length only writes zeros. One body,
+// mrf_block_tc, a template on the element type, runs the MRF chain of
+// tc_common.cuh (mrf_chain_tc, shared with fused_upsample_mrf.cu): every
+// conv an implicit GEMM of warpgroup products (f32 sums in registers; N =
+// round16(C) rounded up to a power of two) over position-major windows.
+// A is loaded into registers with ldmatrix, so a dilated tap is a row
+// shift of the A rows. The weights (1.4 MB in bf16 at C=128, far over the
+// 227 KB a block may hold) flow from L2 through a ring of 3-8 shared
+// stages, each filled by bulk copies of the Tensor Memory Accelerator that
+// complete on an mbarrier; the stages are in the kernel layout the wgmma
+// descriptor reads (K-major core matrices of 8 rows x 16 bytes), made once
+// per weight tensor by the wrapper. Two warpgroups each own 64-row output
+// tiles; each conv computes only the rows the rest of its resblock still
+// reads, so the last conv of a resblock computes just the tile. The
+// wrapper picks the tile that costs the fewest products per SM over the
+// grid. The window is loaded from x at each resblock, transposed to
+// position-major with reads along T; the output is written along T.
+//  - bfloat16 (the serving precision): wgmma m64nNk16; windows of rows of
+//    round16(C) + 8 bf16 for the two activated conv inputs and the
+//    residual stream; stages of up to 64 input channels of one tap at
+//    C=128 (16 KB). At C=128 a tile of up to 96 positions fits (w = 186
+//    window rows: 3 output tiles on the widest conv).
+//  - float32 (parity precision, TF32 off): what bounds it on this card is
+//    float32 accuracy on the tensor cores. One TF32 product keeps 11 bits
+//    of each operand (about three decimal digits), and the CUDA cores' 67
+//    TFLOP/s of float32 is an eighth of TF32's 495. So each product is
+//    3xTF32 (tc_common.cuh): three wgmma m64nNk8 a unit of 8 channels,
+//    A_hi B_hi + A_hi B_lo + A_lo B_hi, which keeps about 21 bits at a
+//    third of TF32's rate (165 TFLOP/s, the bound the smoke states). The
+//    weights' hi and lo planes are split once by the wrapper (two bulk
+//    copies a stage, 16 input channels of both planes at C=128, 16 KB);
+//    A's are split in registers as ldmatrix loads it. A float32 window
+//    row is 528 bytes at C=128 (round16(C) + 4 floats), twice a bf16 one,
+//    so shared memory is what limits the tile: the conv input is
+//    activated on load (mask, leaky ReLU and split in registers, from the
+//    residual stream itself), so no activated windows are kept, and each
+//    conv updates the residual stream in place after a barrier between
+//    the two warpgroups. The windows are then h, resblock "1"'s inner
+//    output and the resblock sum: at C=128 (resblock "2") a tile of up to
+//    128 positions fits beside three ring stages.
 #include "mrf_common.cuh"
 #include "tc_common.cuh"
 
 namespace pt {
-
-template <typename T>
-PT_DEVICE void mrf_block(const T* __restrict__ x, const int* __restrict__ lengths, const T* __restrict__ wm,
-                         const float* __restrict__ bm, T* __restrict__ out, int c, int t_len, int tile, int halo,
-                         int margin, const MrfPlan& plan, int bx, int by, char* smem) {
-  const int w = tile + 2 * halo;
-  const int lda = w + 2 * margin;
-  const int b = by;
-  const int t0 = bx * tile;
-  const int len = min(PT_LDG(lengths + b), t_len);
-  const int org = t0 - halo;  // global position of window column 0
-  const int v_lo = max(0, -org), v_hi = max(0, min(w, len - org));
-
-  MrfSmem<T> m;
-  T* p = reinterpret_cast<T*>(smem);
-  m.a = p;
-  p += align_elems((size_t)c * lda);
-  m.h = p;
-  p += align_elems((size_t)c * w);
-  m.b = p;
-  if (plan.rb1) p += align_elems((size_t)c * w);
-  m.xs = p;
-
-  PT_THREADS(tid) {
-    for (int e = tid; e < c * lda; e += kThreads) m.a[e] = from_f<T>(0.f);
-    for (int e = tid; e < c * tile; e += kThreads) m.xs[e] = from_f<T>(0.f);
-  }
-  PT_SYNC();
-
-  const T* xrow = x + (size_t)b * c * t_len;
-  auto load_h = [&](int tid) {
-    for (int e = tid; e < c * w; e += kThreads) {
-      int ch = e / w, i = e - ch * w;
-      m.h[e] = (i >= v_lo && i < v_hi) ? xrow[(size_t)ch * t_len + org + i] : from_f<T>(0.f);
-    }
-  };
-  mrf_chain(plan, m, c, w, lda, margin, v_lo, v_hi, halo, tile, wm, bm, load_h);
-
-  T* orow = out + (size_t)b * c * t_len;
-  const float n_res = (float)plan.n_res;
-  PT_THREADS(tid) {
-    for (int e = tid; e < c * tile; e += kThreads) {
-      int ch = e / tile, j = e - ch * tile;
-      if (t0 + j < t_len) orow[(size_t)ch * t_len + t0 + j] = from_f<T>(to_f(m.xs[e]) / n_res);
-    }
-  }
-}
 
 // Shared-memory layout of the bf16 body, in bytes: the ring's barriers,
 // its weight stages, then the windows (every region on 16 bytes; the
@@ -132,22 +100,69 @@ PT_HD MrfTcLayout mrf_tc_layout(int c, int tile, int halo) {
   return L;
 }
 
-// 0 if the bf16 body can run this tile in smem_bytes, else -3.
-PT_HD int mrf_tc_check(int c, int tile, int halo, int smem_bytes) {
+// Shared-memory layout of the float32 body, in bytes: the ring's
+// barriers, its weight stages (a piece's hi plane, then its lo plane),
+// then the windows, rows of round16(C) + 4 floats: the residual stream h
+// and, for resblock "1", the inner conv output b (w rows each), and the
+// resblock sum xs (tile rows). The conv inputs are activated on load, so
+// there are no activated windows. ops/cuda/vocoder.py::mrf_tf32_layout
+// mirrors it.
+struct MrfTf32Layout {
+  int cp, np, ldc, w, step_rows, taps, slot_bytes, n_slots;
+  size_t bar, ring, h, b, xs, bytes;
+};
+
+PT_HD MrfTf32Layout mrf_tf32_layout(int c, int tile, int halo, int rb1) {
+  MrfTf32Layout L;
+  L.cp = (c + 15) / 16 * 16;
+  L.np = npad(L.cp);
+  L.ldc = L.cp + Elem<float>::kPad;
+  L.w = tile + 2 * halo;
+  L.step_rows = L.np ? tf32_step_rows(L.cp, L.np) : 8;
+  L.taps = 1;
+  L.slot_bytes = 2 * L.step_rows * L.np * 4;
+  const size_t row = (size_t)L.ldc * 4;
+  const size_t windows = ((rb1 ? 2 : 1) * (size_t)L.w + tile) * row;
+  L.n_slots = ring_slots(windows, L.slot_bytes);
+  L.bar = 0;
+  L.ring = kBarBytes;
+  L.h = L.ring + (size_t)L.n_slots * L.slot_bytes;
+  L.b = L.h + L.w * row;
+  L.xs = L.b + (rb1 ? L.w * row : 0);
+  L.bytes = L.xs + tile * row;
+  return L;
+}
+
+// The layout of the body of element type E.
+template <typename E>
+PT_HD auto mrf_layout(int c, int tile, int halo, int rb1) {
+  if constexpr (kF32<E>)
+    return mrf_tf32_layout(c, tile, halo, rb1);
+  else
+    return mrf_tc_layout(c, tile, halo);
+}
+
+// 0 if the body of element type E can run this tile in smem_bytes, else -3.
+template <typename E>
+PT_HD int mrf_tc_check(int c, int tile, int halo, int rb1, int smem_bytes) {
   if (c % 4 || tile < 1 || halo < 0) return -3;
-  const MrfTcLayout L = mrf_tc_layout(c, tile, halo);
+  const auto L = mrf_layout<E>(c, tile, halo, rb1);
   if (!L.np || (L.w + 63) / 64 > kGroups * mt_per_group(L.np)) return -3;
   return (size_t)smem_bytes < L.bytes || L.bytes > (size_t)kSmemLimit ? -3 : 0;
 }
 
 // The chain's weight stream: conv i's k taps, (cp, np) slices of the
-// kernel layout k_max taps apart, in stages of slot_bytes.
+// kernel layout k_max taps apart, in stages of piece_bytes (float32: of
+// each plane; the lo plane is lo bytes past the hi plane).
+template <typename E>
 struct MrfStream {
+  static constexpr int kPlanes = Elem<E>::kPlanes;
   const char* w;
   const MrfPlan* plan;
   int tap_bytes, piece_bytes;
+  size_t lo;
   PT_HD SegInfo operator()(int seg) const {
-    return {w + (size_t)seg * plan->k_max * tap_bytes, plan->k[seg] * tap_bytes, piece_bytes};
+    return {w + (size_t)seg * plan->k_max * tap_bytes, plan->k[seg] * tap_bytes, piece_bytes, lo};
   }
   PT_HD int total() const {
     int n = 0;
@@ -158,20 +173,21 @@ struct MrfStream {
 };
 
 // wk: the packed weights in the kernel layout (ops/cuda/vocoder.py::
-// tc_weight_layout): per conv and tap, (cp / 8, np / 8, 8, 8) bf16, the
-// K-major 8 x 8 core matrices the wgmma descriptor reads, zero-padded.
-template <int N>
-PT_DEVICE void mrf_block_tc(const pt_bf16* __restrict__ x, const int* __restrict__ lengths,
-                            const pt_bf16* __restrict__ wk, const float* __restrict__ bm, pt_bf16* __restrict__ out,
-                            int c, int t_len, int tile, int halo, const MrfPlan& plan, int bx, int by, char* smem) {
-  const MrfTcLayout L = mrf_tc_layout(c, tile, halo);
+// tc_weights): per conv and tap, K-major core matrices of 8 rows x 16
+// bytes, zero-padded to (cp, np): bf16 (cp / 8, np / 8, 8, 8); float32 a
+// hi and a lo plane (2, ..., cp / 4, np / 8, 8, 4) of tf32 values.
+template <typename E, int N>
+PT_DEVICE void mrf_block_tc(const E* __restrict__ x, const int* __restrict__ lengths, const E* __restrict__ wk,
+                            const float* __restrict__ bm, E* __restrict__ out, int c, int t_len, int tile, int halo,
+                            const MrfPlan& plan, int bx, int by, char* smem) {
+  const auto L = mrf_layout<E>(c, tile, halo, plan.rb1);
   const int w = L.w, ldc = L.ldc;
   const int b = by;
   const int t0 = bx * tile;
   const int n_out = min(tile, t_len - t0);  // positions this block writes
   const int len = min(PT_LDG(lengths + b), t_len);
-  const pt_bf16 zero = from_f<pt_bf16>(0.f);
-  pt_bf16* orow = out + (size_t)b * c * t_len + t0;
+  const E zero = from_f<E>(0.f);
+  E* orow = out + (size_t)b * c * t_len + t0;
   if (t0 >= len) {  // past the row's end the output is zero
     PT_CTHREADS(tid) {
       for (int e = tid; e < c * n_out; e += kThreads) {
@@ -184,29 +200,38 @@ PT_DEVICE void mrf_block_tc(const pt_bf16* __restrict__ x, const int* __restrict
   const int org = t0 - halo;  // global position of window row 0
   const int v_lo = max(0, -org), v_hi = max(0, min(w, len - org));
 
-  pt_bf16* a0 = reinterpret_cast<pt_bf16*>(smem + L.a0);
-  pt_bf16* h = reinterpret_cast<pt_bf16*>(smem + L.h);
-  pt_bf16* xs = reinterpret_cast<pt_bf16*>(smem + L.xs);
+  const size_t win = L.ring + (size_t)L.n_slots * L.slot_bytes;  // the first window
+  E* a0;  // bf16: the conv inputs a0, a1; float32: resblock "1"'s inner output
+  E* a1 = nullptr;
+  if constexpr (kF32<E>) {
+    a0 = reinterpret_cast<E*>(smem + L.b);
+  } else {
+    a0 = reinterpret_cast<E*>(smem + L.a0);
+    a1 = reinterpret_cast<E*>(smem + L.a1);
+  }
+  E* h = reinterpret_cast<E*>(smem + L.h);
+  E* xs = reinterpret_cast<E*>(smem + L.xs);
   // zero the windows: padded channels and xs start at zero
   PT_CTHREADS(tid) {
-    for (size_t e = tid; e < (L.bytes - L.a0) / 16; e += kThreads) zero16(smem + L.a0 + 16 * e);
+    for (size_t e = tid; e < (L.bytes - win) / 16; e += kThreads) zero16(smem + win + 16 * e);
   }
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L.bar);
   Ring ring{smem + L.ring, L.slot_bytes, L.n_slots, bars, bars + L.n_slots};
-  const int tap_bytes = L.cp * L.np * 2;
-  const MrfStream stream{reinterpret_cast<const char*>(wk), &plan, tap_bytes, L.slot_bytes};
+  const int tap_bytes = L.cp * L.np * (int)sizeof(E);
+  const MrfStream<E> stream{reinterpret_cast<const char*>(wk), &plan, tap_bytes, L.slot_bytes / Elem<E>::kPlanes,
+                            (size_t)plan_convs(plan) * plan.k_max * tap_bytes};
   if (!ring_split(ring, stream)) return;  // the producer warpgroup streams the weights
 
   // the stage input, read again from x (L2) at each resblock: a thread
   // takes two channels of one position, neighbouring threads neighbouring
   // positions, so the reads run along T
-  const pt_bf16* xrow = x + (size_t)b * c * t_len;
-  const ChainTc m{{a0, reinterpret_cast<pt_bf16*>(smem + L.a1)}, h, xs, L.step_rows / 16, L.taps, c, L.cp, ldc, w,
-                  halo, tile, v_lo, v_hi};
-  mrf_chain_tc<N>(plan, m, ring, stream, bm, [&](int tid) {
+  const E* xrow = x + (size_t)b * c * t_len;
+  const ChainTc<E> m{{a0, a1}, h, xs, L.step_rows / Elem<E>::kUnitCh, L.taps, c, L.cp, ldc, w,
+                     halo, tile, v_lo, v_hi};
+  mrf_chain_tc<E, N>(plan, m, ring, stream, bm, [&](int tid) {
     const int n = (c / 2) * w;
     for (int e0 = tid; e0 < n; e0 += kBatch * kThreads) {
-      pt_bf16 xv[kBatch][2];
+      E xv[kBatch][2];
 #pragma unroll
       for (int k = 0; k < kBatch; ++k) {  // every load of the batch first, then the stores
         const int e = e0 + k * kThreads, cq = e / w, i = e - cq * w;
@@ -219,7 +244,7 @@ PT_DEVICE void mrf_block_tc(const pt_bf16* __restrict__ x, const int* __restrict
         if (e >= n) break;
         const float x0 = to_f(xv[k][0]), x1 = to_f(xv[k][1]);
         st_pair(h + (size_t)i * ldc + 2 * cq, x0, x1);
-        st_pair(a0 + (size_t)i * ldc + 2 * cq, lrelu(x0, 0.1f), lrelu(x1, 0.1f));
+        if constexpr (!kF32<E>) st_pair(a0 + (size_t)i * ldc + 2 * cq, lrelu(x0, 0.1f), lrelu(x1, 0.1f));
       }
     }
   });
@@ -237,7 +262,7 @@ PT_DEVICE void mrf_block_tc(const pt_bf16* __restrict__ x, const int* __restrict
 #pragma unroll
       for (int k = 0; k < kBatch; ++k) {
         const int e = e0 + k * kThreads, ch = e / n_out, j = e - ch * n_out;
-        if (e < c * n_out) orow[(size_t)ch * t_len + j] = from_f<pt_bf16>(v[k] / n_res);
+        if (e < c * n_out) orow[(size_t)ch * t_len + j] = from_f<E>(v[k] / n_res);
       }
     }
   }
@@ -246,22 +271,14 @@ PT_DEVICE void mrf_block_tc(const pt_bf16* __restrict__ x, const int* __restrict
 }  // namespace pt
 
 #ifndef PT_HOST_EMULATION
-// float32: the CUDA-core body
-__global__ void __launch_bounds__(pt::kThreads)
-    mrf_fused_kernel(const float* x, const int* lengths, const float* wm, const float* bm, float* out, int c,
-                     int t_len, int tile, int halo, int margin, pt::MrfPlan plan) {
-  extern __shared__ __align__(16) char smem[];
-  pt::mrf_block<float>(x, lengths, wm, bm, out, c, t_len, tile, halo, margin, plan, blockIdx.x, blockIdx.y, smem);
-}
-
-// bfloat16: the tensor-core body, one instantiation per product width N
-// (one block per SM: two consumer warpgroups and a producer warpgroup)
-template <int N>
+// One instantiation per element type and product width N (one block per
+// SM: two consumer warpgroups and a producer warpgroup)
+template <typename E, int N>
 __global__ void __launch_bounds__(pt::kTcThreads, 1)
-    mrf_fused_tc_kernel(const pt_bf16* x, const int* lengths, const pt_bf16* wk, const float* bm, pt_bf16* out,
-                        int c, int t_len, int tile, int halo, pt::MrfPlan plan) {
+    mrf_fused_tc_kernel(const E* x, const int* lengths, const E* wk, const float* bm, E* out, int c, int t_len,
+                        int tile, int halo, pt::MrfPlan plan) {
   extern __shared__ __align__(16) char smem[];
-  pt::mrf_block_tc<N>(x, lengths, wk, bm, out, c, t_len, tile, halo, plan, blockIdx.x, blockIdx.y, smem);
+  pt::mrf_block_tc<E, N>(x, lengths, wk, bm, out, c, t_len, tile, halo, plan, blockIdx.x, blockIdx.y, smem);
 }
 
 template <typename Kernel, typename... Args>
@@ -272,31 +289,34 @@ static int launch(Kernel kernel, dim3 grid, int threads, int smem_bytes, cudaStr
   return (int)cudaGetLastError();
 }
 
-// Returns 0 or a cudaError_t (-1: bad plan, -2: bad dtype, -3: the bf16
-// layout does not fit smem_bytes or the warpgroups' tiles). For bf16, wm
-// is the packed weights in the kernel layout (ops/cuda/vocoder.py::
-// tc_weight_layout), on 16 bytes.
+template <typename E>
+static int launch_tc(const pt::MrfPlan& plan, dim3 grid, int smem_bytes, cudaStream_t s, const void* x,
+                     const int* len, const void* wm, const float* bias, void* out, int c, int t_len, int tile,
+                     int halo) {
+  if (int rc = pt::mrf_tc_check<E>(c, tile, halo, plan.rb1, smem_bytes)) return rc;
+  int rc = -3;
+  PT_WITH_WIDTH(pt::mrf_layout<E>(c, tile, halo, plan.rb1).np,
+                rc = launch(mrf_fused_tc_kernel<E, N>, grid, pt::kTcThreads, smem_bytes, s, (const E*)x, len,
+                            (const E*)wm, bias, (E*)out, c, t_len, tile, halo, plan),
+                rc = -3);
+  return rc;
+}
+
+// Returns 0 or a cudaError_t (-1: bad plan, -2: bad dtype, -3: the layout
+// does not fit smem_bytes or the warpgroups' tiles). wm is the packed
+// weights in the kernel layout of the dtype (ops/cuda/vocoder.py::
+// tc_weights), on 16 bytes.
 extern "C" int pt_mrf_fused(const void* x, const void* lengths, const void* wm, const void* bm, void* out, int batch,
-                            int c, int t_len, int tile, int halo, int margin, int dtype, const int* plan_ints,
-                            int n_plan, int smem_bytes, void* stream) {
+                            int c, int t_len, int tile, int halo, int dtype, const int* plan_ints, int n_plan,
+                            int smem_bytes, void* stream) {
   pt::MrfPlan plan;
   if (!pt::parse_plan(plan_ints, n_plan, &plan)) return -1;
   cudaStream_t s = (cudaStream_t)stream;
   const dim3 grid((t_len + tile - 1) / tile, batch);
   const int* len = (const int*)lengths;
   const float* bias = (const float*)bm;
-  if (dtype == 0)
-    return launch(mrf_fused_kernel, grid, pt::kThreads, smem_bytes, s, (const float*)x, len, (const float*)wm, bias, (float*)out, c,
-                  t_len, tile, halo, margin, plan);
-  if (dtype == 1) {
-    if (int rc = pt::mrf_tc_check(c, tile, halo, smem_bytes)) return rc;
-    int rc = -3;
-    PT_WITH_WIDTH(pt::mrf_tc_layout(c, tile, halo).np,
-                  rc = launch(mrf_fused_tc_kernel<N>, grid, pt::kTcThreads, smem_bytes, s, (const pt_bf16*)x, len,
-                              (const pt_bf16*)wm, bias, (pt_bf16*)out, c, t_len, tile, halo, plan),
-                  rc = -3);
-    return rc;
-  }
+  if (dtype == 0) return launch_tc<float>(plan, grid, smem_bytes, s, x, len, wm, bias, out, c, t_len, tile, halo);
+  if (dtype == 1) return launch_tc<pt_bf16>(plan, grid, smem_bytes, s, x, len, wm, bias, out, c, t_len, tile, halo);
   return -2;
 }
 #endif

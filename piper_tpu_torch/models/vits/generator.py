@@ -186,8 +186,9 @@ def prepare_tm(
 ) -> Params:
     """Derived weights of the time-major path: per-stage polyphase tables
     (u, nq, c_in, c_out) and packed MRF weights for the kernels, on the
-    device of the generator's weights; on CUDA in bf16, also the bf16
-    kernels' layout of each (ops/cuda/vocoder.py::tc_weights)."""
+    device of the generator's weights; on CUDA, also the kernels' layout
+    of each (ops/cuda/vocoder.py::tc_weights: bf16, or float32's hi and
+    lo planes)."""
     ks = tuple(cfg.resblock_kernel_sizes)
     ds = tuple(tuple(d) for d in cfg.resblock_dilation_sizes)
     start = tm_start_stage(cfg)
@@ -208,10 +209,9 @@ def prepare_tm(
         mrf.append(
             V.pack_stage_weights(dec_params["resblocks"][i], ks, ds, cfg.resblock, dtype=dtype)
         )
-    if dtype == torch.bfloat16:  # the bf16 kernels' weight layout, made once here
-        for w in ups[start:] + [pw for pw, _ in mrf[start:]]:
-            if w.is_cuda:
-                V.tc_weights(w)
+    for w in ups[start:] + [pw for pw, _ in mrf[start:]]:  # the kernels' weight layout, made once here
+        if w.is_cuda:
+            V.tc_weights(w)
     return {
         "ups": ups,
         "mrf": mrf,

@@ -10,24 +10,29 @@ through a plain C interface.
   fused_upsample_mrf   lrelu -> polyphase ConvTranspose1d -> MRF
                        [-> conv_post -> tanh], phase-plane layouts
 
-Each kernel has two bodies: float32 (parity) on the CUDA cores, and
-bfloat16 (serving) on the tensor cores (csrc/tc_common.cuh: wgmma, with
-the weights fed through a ring of shared stages by bulk copies of the
-Tensor Memory Accelerator). The bf16 bodies read their weights in a
-kernel layout (tc_weight_layout: K-major 8 x 8 core matrices, the layout
-the wgmma descriptor reads), made once per weight tensor (tc_weights,
-which prepare_tm in models/vits/generator.py calls for the voice's
-weights). Their tiles come from their shared-memory layouts, mirrored
-here: mrf_tc_layout / mrf_tc_fits (mrf_fused.cu::mrf_tc_layout) and
-fused_tc_layout / fused_tc_fits (fused_upsample_mrf.cu::tc_layout).
+Each kernel has one body, a template on the element type, on the tensor
+cores (csrc/tc_common.cuh: wgmma, with the weights fed through a ring of
+shared stages by bulk copies of the Tensor Memory Accelerator): bfloat16
+(serving) in bf16 products, float32 (parity) in 3xTF32 products (each
+operand split into tf32 hi and lo, three products a unit). The bodies
+read their weights in a kernel layout (tc_weights: K-major core matrices
+of 8 rows x 16 bytes, the layout the wgmma descriptor reads; bf16
+tc_weight_layout, float32 tf32_weight_layout with its hi and lo planes),
+made once per weight tensor (prepare_tm in models/vits/generator.py makes
+it for the voice's weights). Their tiles come from their shared-memory
+layouts, mirrored here: bf16 mrf_tc_layout / fused_tc_layout
+(mrf_fused.cu::mrf_tc_layout, fused_upsample_mrf.cu::tc_layout), float32
+mrf_tf32_layout / fused_tf32_layout (mrf_fused.cu::mrf_tf32_layout,
+fused_upsample_mrf.cu::tf32_layout), each with its fits test.
 
 Each wrapper takes its plain PyTorch version (`*_plain`, same signature
 and output layout) only when the input lies on the CPU. For a CUDA
 tensor it launches the kernel or raises; a failed build raises too.
 Each wrapper counts its kernel launches in a plain integer attribute
-(`mrf_fused.launches`, `fused_upsample_mrf.launches`), bumped under a
-lock (`count_launch`) so the counts stay exact when several threads
-launch (a server's request handlers, its batcher, a background warm-up).
+(`mrf_fused.launches`, `fused_upsample_mrf.launches`), and by dtype
+(`mrf_fused.by_dtype["float32"].launches`, ...), bumped under a lock
+(`count_launch`) so the counts stay exact when several threads launch (a
+server's request handlers, its batcher, a background warm-up).
 A CUDA graph's capture launches nothing: inside recording_launches the
 wrappers record their launches for the graph, and runtime/graphs.py
 adds them to the counts at every replay.
@@ -69,9 +74,9 @@ NVCC_FLAGS = (
 )
 
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use (H100)
-THREADS = 256  # threads per block (csrc/mrf_common.cuh: kThreads)
-# The bf16 bodies (csrc/tc_common.cuh): warpgroups per block (kGroups),
-# 16-channel chunks per weight stage (kMaxChunks), the ring's stages
+THREADS = 256  # consumer threads per block (csrc/mrf_common.cuh: kThreads)
+# The bodies (csrc/tc_common.cuh): warpgroups per block (kGroups),
+# 16-channel chunks per bf16 weight stage (kMaxChunks), the ring's stages
 # (kRingMin, kRingMax) and the bytes of its mbarriers (kBarBytes).
 TC_GROUPS = 2
 TC_MAX_CHUNKS = 4
@@ -164,14 +169,21 @@ def _al(n: int) -> int:
 
 
 def mrf_smem_bytes(c, tile, halo, margin, rb1, esize) -> int:
-    """Bytes of shared memory mrf_fused.cu's block layout takes."""
+    """The stage split's shared-memory rule for an MRF stage
+    (models/vits/generator.py::tm_start_stage, at SPLIT_ESIZE): a
+    channel-major layout of the conv input with margins, the residual
+    stream (and resblock "1"'s inner output) and the resblock sum. No
+    kernel runs this layout; the split keeps it so that every preset
+    keeps its stages (tests/test_torch_launch_config.py)."""
     w = tile + 2 * halo
     n = _al(c * (w + 2 * margin)) + _al(c * w) * (2 if rb1 else 1) + _al(c * tile)
     return n * esize
 
 
 def fused_smem_bytes(c_in, c_out, u, nq, tile, halo, hpost, margin, rb1, esize) -> int:
-    """Bytes of shared memory fused_upsample_mrf.cu's block layout takes."""
+    """The stage split's shared-memory rule for a fused stage
+    (generator.py::fused_suffix_start), as mrf_smem_bytes is for an MRF
+    stage."""
     w = tile + 2 * halo
     n = (
         _al(c_out * (w + 2 * margin))
@@ -260,16 +272,22 @@ def mrf_smem_bytes_tc(c, tile, halo) -> int:
     return mrf_tc_layout(c, tile, halo)["bytes"]
 
 
-def mrf_tc_fits(c, tile, halo) -> bool:
-    """Whether the bf16 body of mrf_fused runs this tile: a product width
-    of at most 256, the window's 64-row output tiles within the two
-    warpgroups' registers, the layout within shared memory."""
-    lay = mrf_tc_layout(c, tile, halo)
+def _layout_fits(lay: Dict[str, int], c: int, rows: int) -> bool:
+    """Whether a body runs a layout of `c` output channels whose GEMMs
+    span up to `rows` rows: a product width of at most 256, the 64-row
+    output tiles within the two warpgroups' registers, the layout within
+    shared memory."""
     return (
         c % 4 == 0 and lay["np"] > 0
-        and -(-lay["w"] // 64) <= TC_GROUPS * _mt_per_group(lay["np"])
+        and -(-rows // 64) <= TC_GROUPS * _mt_per_group(lay["np"])
         and lay["bytes"] <= SMEM_LIMIT
     )
+
+
+def mrf_tc_fits(c, tile, halo) -> bool:
+    """Whether the bf16 body of mrf_fused runs this tile."""
+    lay = mrf_tc_layout(c, tile, halo)
+    return _layout_fits(lay, c, lay["w"])
 
 
 def fused_tc_layout(c_in, c_out, u, nq, tile, halo, hpost) -> Dict[str, int]:
@@ -307,15 +325,85 @@ def fused_smem_bytes_tc(c_in, c_out, u, nq, tile, halo, hpost) -> int:
 
 
 def fused_tc_fits(c_in, c_out, u, nq, tile, halo, hpost) -> bool:
-    """Whether the bf16 body runs this tile: a product width of at most
-    256, the window's (or the input frames') 64-row output tiles within
-    the two warpgroups' registers, the layout within shared memory."""
+    """Whether the bf16 body of fused_upsample_mrf runs this tile (its
+    GEMMs span the window or the input frames)."""
     lay = fused_tc_layout(c_in, c_out, u, nq, tile, halo, hpost)
-    return (
-        c_out % 4 == 0 and lay["np"] > 0
-        and -(-max(lay["w"], lay["n_fr"]) // 64) <= TC_GROUPS * _mt_per_group(lay["np"])
-        and lay["bytes"] <= SMEM_LIMIT
+    return _layout_fits(lay, c_out, max(lay["w"], lay["n_fr"]))
+
+
+TF32_PAD = 4  # floats past round16(C) in a float32 window row (tc_common.cuh: Elem<float>::kPad)
+
+
+def _tf32_step_rows(k: int, n: int) -> int:
+    """Input-channel rows of one float32 weight stage: 16 or 8, its hi and
+    lo planes at most 16 KB together, dividing k
+    (tc_common.cuh::tf32_step_rows)."""
+    r = 16
+    while r > 8 and (r * n * 8 > 16384 or k % r):
+        r //= 2
+    return r
+
+
+def mrf_tf32_layout(c, tile, halo, rb1) -> Dict[str, int]:
+    """Shared-memory layout of mrf_fused.cu's float32 body, in bytes,
+    field by field as csrc/mrf_fused.cu::mrf_tf32_layout: the ring's
+    mbarriers and weight stages (hi and lo planes), then position-major
+    windows with rows of round16(C) + 4 floats for the residual stream
+    and, for resblock "1", the inner conv output (w rows each), and the
+    resblock sum (tile rows)."""
+    cp = _r16(c)
+    np_ = _npad(cp)
+    ldc, w = cp + TF32_PAD, tile + 2 * halo
+    step = _tf32_step_rows(cp, np_) if np_ else 8
+    slot, row = 2 * step * np_ * 4, 4 * ldc
+    n_slots, h = _ring(((2 if rb1 else 1) * w + tile) * row, slot)
+    b = h + w * row
+    xs = b + (w * row if rb1 else 0)
+    return dict(
+        cp=cp, np=np_, ldc=ldc, w=w, step_rows=step, taps=1, slot_bytes=slot, n_slots=n_slots,
+        bar=0, ring=TC_BAR_BYTES, h=h, b=b, xs=xs, bytes=xs + tile * row,
     )
+
+
+def mrf_tf32_fits(c, tile, halo, rb1) -> bool:
+    """Whether the float32 body of mrf_fused runs this tile."""
+    lay = mrf_tf32_layout(c, tile, halo, rb1)
+    return _layout_fits(lay, c, lay["w"])
+
+
+def fused_tf32_layout(c_in, c_out, u, nq, tile, halo, hpost, rb1) -> Dict[str, int]:
+    """Shared-memory layout of fused_upsample_mrf.cu's float32 body, in
+    bytes, field by field as csrc/fused_upsample_mrf.cu::tf32_layout: the
+    ring's mbarriers and weight stages (hi and lo planes), then
+    position-major windows with rows of round16(C) + 4 floats for the
+    residual stream, resblock "1"'s inner output and the transposed conv's
+    output (w rows each), the resblock sum (tile + 2 hpost rows) and the
+    input frames (rows of round16(C_in) + 4 floats)."""
+    cp, cip = _r16(c_out), _r16(c_in)
+    np_ = _npad(cp)
+    ldc, ldi = cp + TF32_PAD, cip + TF32_PAD
+    w, xs_w = tile + 2 * halo, tile + 2 * hpost
+    n_fr = (w + u - 2) // u + 1
+    in_rows = n_fr + nq - 1
+    st_t = _tf32_step_rows(cip, np_) if np_ else 8
+    st_c = _tf32_step_rows(cp, np_) if np_ else 8
+    slot, row = 2 * max(st_t, st_c) * np_ * 4, 4 * ldc
+    n_slots, h = _ring(((3 if rb1 else 2) * w + xs_w) * row + in_rows * ldi * 4, slot)
+    b = h + w * row
+    y = b + (w * row if rb1 else 0)
+    xs = y + w * row
+    return dict(
+        cp=cp, np=np_, ldc=ldc, cip=cip, ldi=ldi, w=w, xs_w=xs_w, n_fr=n_fr,
+        in_rows=in_rows, step_rows_t=st_t, step_rows_c=st_c, taps_t=1, taps_c=1, slot_bytes=slot,
+        n_slots=n_slots, bar=0, ring=TC_BAR_BYTES, h=h, b=b, y=y, xs=xs,
+        **{"in": xs + xs_w * row}, bytes=xs + xs_w * row + in_rows * ldi * 4,
+    )
+
+
+def fused_tf32_fits(c_in, c_out, u, nq, tile, halo, hpost, rb1) -> bool:
+    """Whether the float32 body of fused_upsample_mrf runs this tile."""
+    lay = fused_tf32_layout(c_in, c_out, u, nq, tile, halo, hpost, rb1)
+    return _layout_fits(lay, c_out, max(lay["w"], lay["n_fr"]))
 
 
 def _chain_products(blocks, tile: int, chunks: int) -> int:
@@ -350,23 +438,6 @@ def _pick_tile_by_cost(fits, cost, unit: int, n: int, rows: int, n_sm: int) -> i
         if best_cost is None or c <= best_cost:
             best, best_cost = tile, c
     return best
-
-
-def _pick_tile(fits, unit: int, n: int, rows: int, n_sm: int) -> int:
-    """Largest tile (a multiple of `unit`) that `fits`, then halved while
-    the grid would leave SMs idle. 0 if none fits."""
-    tile = min(MAX_TILE, -(-n // unit) * unit)
-    while tile >= unit and not fits(tile):
-        tile -= unit
-    if tile < unit:
-        return 0
-    floor = max(unit, 64)
-    while rows * -(-n // tile) < 2 * n_sm:
-        half = -(-(tile // 2) // unit) * unit
-        if half < floor or half >= tile:
-            break
-        tile = half
-    return tile
 
 
 def mrf_fits(c, kernel_sizes, dilation_sizes, resblock_type, esize) -> bool:
@@ -404,66 +475,68 @@ def _hashable(v):
 
 
 @functools.lru_cache(maxsize=1024)
-def _mrf_tile_tc(b, c, t, kernel_sizes, dilation_sizes, resblock_type, n_sm) -> int:
-    """mrf_fused's bf16 tile: the one with the fewest warpgroup products
-    per SM over the grid (multiples of 16 positions)."""
+def _mrf_tile_tc(b, c, t, kernel_sizes, dilation_sizes, resblock_type, n_sm, esize) -> int:
+    """mrf_fused's tile: the one with the fewest warpgroup products per SM
+    over the grid (multiples of 16 positions), in the bf16 layout (esize
+    2) or the float32 one (esize 4: 8-channel units of three products)."""
     blocks, halo = stage_plan(kernel_sizes, dilation_sizes, resblock_type)
-    chunks = _r16(c) // 16
-    return _pick_tile_by_cost(
-        lambda tl: mrf_tc_fits(c, tl, halo), lambda tl: _chain_products(blocks, tl, chunks),
-        16, t, b, n_sm,
-    )
+    rb1 = resblock_type == "1"
+    if esize == 2:
+        fits, units = (lambda tl: mrf_tc_fits(c, tl, halo)), _r16(c) // 16
+    else:
+        fits, units = (lambda tl: mrf_tf32_fits(c, tl, halo, rb1)), 3 * _r16(c) // 8
+    return _pick_tile_by_cost(fits, lambda tl: _chain_products(blocks, tl, units), 16, t, b, n_sm)
 
 
 @functools.lru_cache(maxsize=1024)
 def _fused_tile_tc(
-    b, v, c_in, c_out, u, u_in, nq, hpost, kernel_sizes, dilation_sizes, resblock_type, n_sm,
+    b, v, c_in, c_out, u, u_in, nq, hpost, kernel_sizes, dilation_sizes, resblock_type, n_sm, esize,
 ) -> int:
-    """fused_upsample_mrf's bf16 tile (whole output frames, at least 16
+    """fused_upsample_mrf's tile (whole output frames, at least 16
     samples): the one with the fewest warpgroup products per SM over the
     grid, the transposed conv's (one GEMM per phase over the window's
     input frames, the phases' tiles dealt to the warpgroups in turn) and
-    the chain's."""
+    the chain's; in the bf16 layout (esize 2) or the float32 one (esize 4:
+    8-channel units of three products)."""
     blocks, halo = stage_plan(kernel_sizes, dilation_sizes, resblock_type)
     halo += hpost
     u_out = u * u_in
+    rb1 = resblock_type == "1"
+
+    def layout(tl):
+        if esize == 2:
+            return fused_tc_layout(c_in, c_out, u, nq, tl, halo, hpost)
+        return fused_tf32_layout(c_in, c_out, u, nq, tl, halo, hpost, rb1)
+
+    def fits(tl):
+        lay = layout(tl)
+        return _layout_fits(lay, c_out, max(lay["w"], lay["n_fr"]))
+
+    per = 16 if esize == 2 else 8  # input channels of one unit
+    mult = 1 if esize == 2 else 3  # products of one unit
 
     def cost(tl):
-        lay = fused_tc_layout(c_in, c_out, u, nq, tl, halo, hpost)
-        tconv = -(-u * -(-lay["n_fr"] // 64) // TC_GROUPS) * nq * lay["cip"] // 16
-        return tconv + _chain_products(blocks, lay["xs_w"], lay["cp"] // 16)
+        lay = layout(tl)
+        tconv = -(-u * -(-lay["n_fr"] // 64) // TC_GROUPS) * nq * mult * lay["cip"] // per
+        return tconv + _chain_products(blocks, lay["xs_w"], mult * lay["cp"] // per)
 
-    return _pick_tile_by_cost(
-        lambda tl: fused_tc_fits(c_in, c_out, u, nq, tl, halo, hpost), cost,
-        u_out * -(-16 // u_out), v * u_out, b, n_sm,
-    )
+    return _pick_tile_by_cost(fits, cost, u_out * -(-16 // u_out), v * u_out, b, n_sm)
 
 
 def mrf_launch_config(
     b, c, t, kernel_sizes, dilation_sizes, resblock_type, k_max, esize, n_sm
 ) -> Dict[str, Any]:
-    """Tile, halo, margin, plan and shared-memory bytes of one mrf_fused
-    launch (the arguments of csrc/mrf_fused.cu::pt_mrf_fused). esize 2
-    (bfloat16) sizes the tensor-core body's layout, esize 4 the float32
-    CUDA-core body's."""
+    """Tile, halo, plan and shared-memory bytes of one mrf_fused launch
+    (the arguments of csrc/mrf_fused.cu::pt_mrf_fused). esize 2 (bfloat16)
+    sizes the bf16 body's layout, esize 4 the float32 body's."""
     _, halo = stage_plan(kernel_sizes, dilation_sizes, resblock_type)
-    margin = _margin(kernel_sizes, dilation_sizes)
     rb1 = resblock_type == "1"
-
-    if esize == 2:
-        def smem(tl):
-            return mrf_smem_bytes_tc(c, tl, halo)
-
-        tile = _mrf_tile_tc(b, c, t, _hashable(kernel_sizes), _hashable(dilation_sizes), resblock_type, n_sm)
-    else:
-        def smem(tl):
-            return mrf_smem_bytes(c, tl, halo, margin, rb1, esize)
-
-        tile = _pick_tile(lambda tl: smem(tl) <= SMEM_LIMIT, 16, t, b, n_sm)
+    tile = _mrf_tile_tc(b, c, t, _hashable(kernel_sizes), _hashable(dilation_sizes), resblock_type, n_sm, esize)
     if tile == 0:
         raise ValueError(f"mrf_fused: C={c} with halo {halo} does not fit shared memory")
+    lay = mrf_tc_layout(c, tile, halo) if esize == 2 else mrf_tf32_layout(c, tile, halo, rb1)
     return dict(
-        tile=tile, halo=halo, margin=margin, smem=smem(tile),
+        tile=tile, halo=halo, smem=lay["bytes"],
         plan=mrf_plan_ints(kernel_sizes, dilation_sizes, resblock_type, k_max),
     )
 
@@ -474,37 +547,25 @@ def fused_launch_config(
 ) -> Dict[str, Any]:
     """Stage arguments, plan and shared-memory bytes of one
     fused_upsample_mrf launch (csrc/fused_upsample_mrf.cu::StageArgs).
-    k_post = 0 means no conv_post. esize 2 (bfloat16) sizes the
-    tensor-core body's layout, esize 4 the float32 CUDA-core body's."""
+    k_post = 0 means no conv_post. esize 2 (bfloat16) sizes the bf16
+    body's layout, esize 4 the float32 body's."""
     _, halo = stage_plan(kernel_sizes, dilation_sizes, resblock_type)
     hpost = (k_post - 1) // 2 if k_post else 0
     halo += hpost
-    margin = _margin(kernel_sizes, dilation_sizes)
-    u_out = u * u_in
     rb1 = resblock_type == "1"
-
-    unit = u_out * -(-16 // u_out)
-    if esize == 2:
-        def smem(tl):
-            return fused_smem_bytes_tc(c_in, c_out, u, nq, tl, halo, hpost)
-
-        tile = _fused_tile_tc(
-            b, v, c_in, c_out, u, u_in, nq, hpost, _hashable(kernel_sizes),
-            _hashable(dilation_sizes), resblock_type, n_sm,
-        )
-    else:
-        def smem(tl):
-            return fused_smem_bytes(c_in, c_out, u, nq, tl, halo, hpost, margin, rb1, esize)
-
-        tile = _pick_tile(lambda tl: smem(tl) <= SMEM_LIMIT, unit, v * u_out, b, n_sm)
+    tile = _fused_tile_tc(
+        b, v, c_in, c_out, u, u_in, nq, hpost, _hashable(kernel_sizes),
+        _hashable(dilation_sizes), resblock_type, n_sm, esize,
+    )
     if tile == 0:
         raise ValueError("fused_upsample_mrf: this stage does not fit shared memory")
-    args = [
-        c_in, c_out, v, u, u_in, q0, nq, int(k_post > 0), k_post, tile, halo,
-        hpost, margin, _ld_in(tile + 2 * halo, u, nq),
-    ]
+    if esize == 2:
+        smem = fused_smem_bytes_tc(c_in, c_out, u, nq, tile, halo, hpost)
+    else:
+        smem = fused_tf32_layout(c_in, c_out, u, nq, tile, halo, hpost, rb1)["bytes"]
+    args = [c_in, c_out, v, u, u_in, q0, nq, int(k_post > 0), k_post, tile, halo, hpost]
     return dict(
-        args=args, tile=tile, smem=smem(tile),
+        args=args, tile=tile, smem=smem,
         plan=mrf_plan_ints(kernel_sizes, dilation_sizes, resblock_type, k_max),
     )
 
@@ -562,7 +623,7 @@ def build(names: Sequence[str] = tuple(SOURCES)) -> Dict[str, ctypes.CDLL]:
                 fn = getattr(lib, f"pt_{n}")
                 fn.restype = ctypes.c_int
                 if n == "mrf_fused":
-                    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
+                    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
                         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
                     ]
                 else:
@@ -606,16 +667,33 @@ _recording = threading.local()
 
 
 def count_launch(wrapper) -> None:
-    """Add one to `wrapper.launches`. A read-modify-write of an attribute
-    is not atomic across threads, so it runs under a lock. While this
-    thread captures a CUDA graph (recording_launches), the launch is
-    recorded for the graph instead: a capture runs nothing."""
+    """Add one to `wrapper.launches` (a wrapper, or one of its LaunchCount
+    by dtype). A read-modify-write of an attribute is not atomic across
+    threads, so it runs under a lock. While this thread captures a CUDA
+    graph (recording_launches), the launch is recorded for the graph
+    instead: a capture runs nothing."""
     recorder = getattr(_recording, "counter", None)
     if recorder is not None:
         recorder[wrapper] += 1
         return
     with _count_lock:
         wrapper.launches += 1
+
+
+class LaunchCount:
+    """One dtype's launches of a wrapper (`wrapper.by_dtype[name]`)."""
+
+    def __init__(self):
+        self.launches = 0
+
+
+def _count_by_dtype(wrapper) -> None:
+    wrapper.launches = 0
+    wrapper.by_dtype = {_dtype_name(dt): LaunchCount() for dt in _DTYPE_CODE}
+
+
+def _dtype_name(dt: torch.dtype) -> str:
+    return str(dt).split(".")[-1]
 
 
 @contextlib.contextmanager
@@ -656,37 +734,88 @@ def tc_weight_layout(w: torch.Tensor) -> torch.Tensor:
     return out.transpose(-2, -1).contiguous()  # (.., kb, nb, nn, kk)
 
 
+def tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """x (float32) rounded to tf32 as cvt.rna.tf32.f32 rounds it: to the
+    nearest value with 10 mantissa bits, ties away from zero (the 13 bits
+    below them zero); infinities and NaN as they are."""
+    u = x.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    r = (u + 0x1000) & 0xFFFFE000
+    r = torch.where((u & 0x7F800000) == 0x7F800000, u, r)
+    return torch.where(r >= 2**31, r - 2**32, r).to(torch.int32).view(torch.float32).reshape(x.shape)
+
+
+def tf32_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The 3xTF32 split of float32 x: hi = tf32(x), lo = tf32(x - hi), so
+    hi + lo is x within about 2^-21 of |x| (tc_common.cuh::tf32_split)."""
+    hi = tf32_rna(x)
+    return hi, tf32_rna(x - hi)
+
+
+def tf32_weight_layout(w: torch.Tensor) -> torch.Tensor:
+    """Per-tap float32 weight slices (..., K, N) -> the float32 kernels'
+    layout (2, ..., Kp/4, Np/8, 8, 4): the 3xTF32 hi plane, then the lo
+    plane (tf32_split), each for each tap in K-major core matrices of 8
+    rows x 16 bytes (row n of a core matrix holds 4 consecutive input
+    channels), core matrices along N 128 bytes apart and along K Np*16
+    bytes apart, as the wgmma matrix descriptor of csrc/tc_common.cuh::
+    gemm reads them; K padded to a multiple of 16 and N to the product
+    width with zeros. A tap's slice, or any run of 8*j of its input
+    channels, is one contiguous range of each plane: one bulk copy each."""
+    *lead, k, n = w.shape
+    kp, np_ = _r16(k), _npad(_r16(n))
+    if not np_:
+        raise ValueError(f"the float32 kernels take at most 256 output channels, got {n}")
+    out = w.new_zeros((*lead, kp, np_), dtype=torch.float32)
+    out[..., :k, :n] = w
+    planes = torch.stack(tf32_split(out))
+    planes = planes.reshape(2, *lead, kp // 4, 4, np_ // 8, 8).transpose(-3, -2)  # (.., kb, nb, kk, nn)
+    return planes.transpose(-2, -1).contiguous()  # (2, .., kb, nb, nn, kk)
+
+
+def kernel_weight_layout(w: torch.Tensor) -> torch.Tensor:
+    """The kernel layout of w's dtype: tc_weight_layout (bf16) or
+    tf32_weight_layout (float32)."""
+    return tc_weight_layout(w) if w.dtype == torch.bfloat16 else tf32_weight_layout(w)
+
+
 _tc_cache: Dict[int, Tuple[Any, int, int, torch.Tensor]] = {}
 _tc_lock = threading.Lock()
 
 
+def _version(w: torch.Tensor) -> Optional[int]:
+    """w's version counter, or None for an inference tensor (made in
+    torch.inference_mode, which keeps no version counter for it)."""
+    return None if w.is_inference() else w._version
+
+
 def tc_weights(w: torch.Tensor) -> torch.Tensor:
-    """tc_weight_layout(w), made once per weight tensor (again if w is
-    modified in place) and kept while w lives; its address and every
-    slice a bulk copy takes of it (taps, and the steps and stages cut from
-    them: multiples of 16 input channels) are checked on 16 bytes when it
-    is made. prepare_tm makes it for a voice's weights, so a call inside a
-    CUDA graph capture finds it made; making it there would record the
-    repacking in the graph, so that raises."""
+    """kernel_weight_layout(w), made once per weight tensor (again if w is
+    modified in place, except an inference tensor's, which PyTorch keeps
+    no version of) and kept while w lives; its address and every slice a
+    bulk copy takes of it (taps, and the steps and stages cut from them:
+    multiples of 16 bf16 or 8 float input channels) are checked on 16
+    bytes when it is made. prepare_tm makes it for a voice's weights, so a
+    call inside a CUDA graph capture finds it made; making it there would
+    record the repacking in the graph, so that raises."""
     key = id(w)
     with _tc_lock:
         hit = _tc_cache.get(key)
-    if hit is not None and hit[0]() is w and hit[1] == w._version and hit[2] == w.data_ptr():
+    if hit is not None and hit[0]() is w and hit[1] == _version(w) and hit[2] == w.data_ptr():
         return hit[3]
     if w.is_cuda and torch.cuda.is_current_stream_capturing():
-        raise RuntimeError("the bf16 kernels' weight layout is made before a CUDA graph capture (prepare_tm)")
-    out = tc_weight_layout(w)
+        raise RuntimeError("the kernels' weight layout is made before a CUDA graph capture (prepare_tm)")
+    out = kernel_weight_layout(w)
     _check_bulk(out, (out.shape[-4] * out.shape[-3] * 128, out.shape[-3] * 256), "tc_weights")
     ref = weakref.ref(w, lambda _, key=key: _tc_cache.pop(key, None))
     with _tc_lock:
-        _tc_cache[key] = (ref, w._version, w.data_ptr(), out)
+        _tc_cache[key] = (ref, _version(w), w.data_ptr(), out)
     return out
 
 
 def _check_bulk(t: torch.Tensor, slice_bytes: Sequence[int], name: str) -> None:
     """The bulk copies need 16-byte addresses and sizes."""
     if t.data_ptr() % 16 or any(b % 16 for b in slice_bytes):
-        raise ValueError(f"{name}: the bf16 kernel's bulk copies need 16-byte aligned weights and slices")
+        raise ValueError(f"{name}: the kernels' bulk copies need 16-byte aligned weights and slices")
 
 
 # ---------------------------------------------------------------------------
@@ -730,7 +859,7 @@ def mrf_fused(
         b, c, t, kernel_sizes, dilation_sizes, resblock_type, k_max,
         x_tm.element_size(), _n_sm(dev),
     )
-    w_arg = tc_weights(packed_w) if dt == torch.bfloat16 else packed_w
+    w_arg = tc_weights(packed_w)
     fn = build(["mrf_fused"])["mrf_fused"].pt_mrf_fused
     out = torch.empty_like(x_tm)
     if t == 0 or b == 0:
@@ -739,16 +868,17 @@ def mrf_fused(
         rc = fn(
             x_tm.data_ptr(), lengths.data_ptr(), w_arg.data_ptr(),
             packed_b.data_ptr(), out.data_ptr(), b, c, t, cfg["tile"],
-            cfg["halo"], cfg["margin"], _DTYPE_CODE[dt],
+            cfg["halo"], _DTYPE_CODE[dt],
             _int_array(cfg["plan"]), len(cfg["plan"]), cfg["smem"],
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _raise_on(rc, "mrf_fused")
     count_launch(mrf_fused)
+    count_launch(mrf_fused.by_dtype[_dtype_name(dt)])
     return out
 
 
-mrf_fused.launches = 0
+_count_by_dtype(mrf_fused)
 
 
 # Time tile of the plain versions' products: each product runs over
@@ -890,7 +1020,7 @@ def fused_upsample_mrf(
         b, v, c_in, c_out, u, u_in, q0, nq, k_post, kernel_sizes,
         dilation_sizes, resblock_type, k_max, x_tm.element_size(), _n_sm(dev),
     )
-    wt_arg, wm_arg = (tc_weights(wt), tc_weights(wm)) if dt == torch.bfloat16 else (wt, wm)
+    wt_arg, wm_arg = tc_weights(wt), tc_weights(wm)
     fn = build(["fused_upsample_mrf"])["fused_upsample_mrf"].pt_fused_upsample_mrf
     out = torch.empty(
         (b, u * u_in if post else u * u_in * c_out, v), dtype=dt, device=dev
@@ -907,10 +1037,11 @@ def fused_upsample_mrf(
         )
     _raise_on(rc, "fused_upsample_mrf")
     count_launch(fused_upsample_mrf)
+    count_launch(fused_upsample_mrf.by_dtype[_dtype_name(dt)])
     return out
 
 
-fused_upsample_mrf.launches = 0
+_count_by_dtype(fused_upsample_mrf)
 
 
 def fused_upsample_mrf_plain(

@@ -192,6 +192,60 @@ def test_fused_upsample_mrf_row_alone_equals_row_in_batch(dev):
     assert torch.equal(alone[0], batch[1])
 
 
+def _f32_medium(g, dev, t, lengths):
+    """Stage 0 of the medium voice (C=128, resblock "2") and stages 1-2 in
+    float32, with rows of these lengths (positions at stage 0)."""
+    ks, ds = RB["2"]
+    w, b = V.pack_stage_weights(_blocks(g, 128, "2"), ks, ds, "2")
+    x = torch.randn((len(lengths), 128, t), generator=g) * (torch.arange(t)[None, None] < lengths[:, None, None])
+    s1 = _stage(g, 8, 16, 128, 64, "2", torch.float32, dev)
+    s2 = _stage(g, 4, 8, 64, 32, "2", torch.float32, dev)
+    kw = dict(kernel_sizes=ks, dilation_sizes=ds, resblock_type="2")
+
+    def run(x, lengths):
+        x0 = V.mrf_fused(x, lengths, w.to(dev), b.to(dev), **kw)
+        y = _run(V.fused_upsample_mrf, s1, x0.contiguous(), lengths * 8, 1, False)
+        return x0, _run(V.fused_upsample_mrf, s2, y, lengths * 32, 8, True)
+
+    return x.to(dev), lengths.to(dev), run
+
+
+def test_float32_row_alone_equals_row_in_batch(dev):
+    """float32 (3xTF32): a row computed alone (another grid, other tiles)
+    gives the same bits as inside a batch of 3, through mrf_fused at the
+    medium voice's stage-0 width and both fused stages after it: each
+    output element sums in one fixed order (taps, 8-channel units, then
+    the three products)."""
+    g = torch.Generator().manual_seed(21)
+    x, lengths, run = _f32_medium(g, dev, 1211, torch.tensor([1211, 803, 40], dtype=torch.int32))
+    x0, wave = run(x, lengths)
+    a0, awave = run(x[1:2, :, :803].contiguous(), lengths[1:2].contiguous())
+    assert torch.equal(a0[0], x0[1, :, :803])
+    assert torch.equal(awave[0], wave[1, :, :803])
+
+
+def test_float32_kernels_are_deterministic(dev):
+    """float32: the same inputs twice give the same bits in both kernels
+    (no atomics, one sum order)."""
+    g = torch.Generator().manual_seed(22)
+    x, lengths, run = _f32_medium(g, dev, 517, torch.tensor([517, 333, 9], dtype=torch.int32))
+    first, again = run(x, lengths), run(x, lengths)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+def test_float32_tiles_past_a_row_end_give_zeros(dev):
+    """float32: beside a row of 1511 positions, a row of 5: the blocks
+    whose tiles start past its end return at once and write zeros, in
+    both kernels, and that row's bits are those of the row alone."""
+    g = torch.Generator().manual_seed(23)
+    x, lengths, run = _f32_medium(g, dev, 1511, torch.tensor([1511, 5], dtype=torch.int32))
+    x0, wave = run(x, lengths)
+    assert not x0[1, :, 5:].any() and not wave[1, :, 5:].any()
+    assert x0[1, :, :5].any() and wave[1, :, :5].any()
+    a0, awave = run(x[1:2, :, :5].contiguous(), lengths[1:2].contiguous())
+    assert torch.equal(a0[0], x0[1, :, :5]) and torch.equal(awave[0], wave[1, :, :5])
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     ks, ds = RB["2"]
     g = torch.Generator().manual_seed(0)

@@ -262,6 +262,27 @@ def test_graph_capture_records_launches_instead_of_counting():
     assert torch.equal(out[0], torch.full((2,), 2.0)) and cache.stats["captures"] == 0
 
 
+def test_wrappers_count_their_launches_by_dtype():
+    """Each wrapper counts a launch in its total and in its dtype's count
+    (wrapper.by_dtype), both through count_launch; a capture records
+    both, and a replay's count_launch of each record adds to both."""
+    import inspect
+
+    for wrapper in (V.mrf_fused, V.fused_upsample_mrf):
+        assert sorted(wrapper.by_dtype) == ["bfloat16", "float32"]
+        assert f"count_launch({wrapper.__name__}.by_dtype[_dtype_name(dt)])" in inspect.getsource(wrapper)
+    f32 = V.mrf_fused.by_dtype["float32"]
+    total, before = V.mrf_fused.launches, f32.launches
+    with V.recording_launches() as rec:
+        V.count_launch(V.mrf_fused)
+        V.count_launch(f32)
+    assert dict(rec) == {V.mrf_fused: 1, f32: 1} and f32.launches == before
+    for wrapper, n in rec.items():  # as runtime/graphs.py counts a replay
+        for _ in range(n):
+            V.count_launch(wrapper)
+    assert (V.mrf_fused.launches, f32.launches) == (total + 1, before + 1)
+
+
 def test_stage_timer_report_has_the_jax_format():
     """The same spans through both StageTimers: the same names, counts
     and keys, totals and means rounded as the JAX module rounds them."""

@@ -1,9 +1,9 @@
 """The CUDA kernels' own source, built for the host, against the plain versions.
 
 csrc/host_emulation.cpp compiles mrf_fused.cu and fused_upsample_mrf.cu
-with -DPT_HOST_EMULATION: each block runs phase by phase on the CPU
-(csrc/mrf_common.cuh), and the bf16 bodies' warpgroup products, bulk
-copies and mbarriers as the PTX ISA defines them (csrc/tc_common.cuh), so
+with -DPT_HOST_EMULATION: each block runs phase by phase on the CPU, and
+the bodies' warpgroup products (bf16, and float32's 3xTF32), bulk copies
+and mbarriers as the PTX ISA defines them (csrc/tc_common.cuh), so
 the kernels' tiling, halos, masks, polyphase and plane index maps are
 checked here, where there is no GPU. Launch parameters come from the
 same functions the CUDA wrappers use (ops/cuda/vocoder.py::
@@ -38,9 +38,9 @@ def emu(tmp_path_factory):
 
 
 def _kernel_weights(w):
-    """The bf16 bodies read their weights in the kernel layout, as the
-    CUDA wrappers pass them (ops/cuda/vocoder.py::tc_weights)."""
-    return V.tc_weight_layout(w) if w.dtype == torch.bfloat16 else w
+    """The bodies read their weights in the kernel layout of their dtype,
+    as the CUDA wrappers pass them (ops/cuda/vocoder.py::tc_weights)."""
+    return V.kernel_weight_layout(w)
 
 
 def _blocks(rng, c, rb, unit_gain=False):
@@ -71,12 +71,14 @@ def _emu_mrf(lib, x, lengths, w, b, rb, n_sm, tile=None):
     bsz, c, t = x.shape
     cfg = V.mrf_launch_config(bsz, c, t, ks, ds, rb, w.shape[1], x.element_size(), n_sm)
     if tile is not None:
-        cfg.update(tile=tile, smem=V.mrf_smem_bytes_tc(c, tile, cfg["halo"]))
+        lay = (V.mrf_tc_layout(c, tile, cfg["halo"]) if x.dtype == torch.bfloat16
+               else V.mrf_tf32_layout(c, tile, cfg["halo"], rb == "1"))
+        cfg.update(tile=tile, smem=lay["bytes"])
     out = torch.full_like(x, float("nan"))
     wk = _kernel_weights(w)
     rc = lib.emu_mrf_fused(
         x.data_ptr(), lengths.data_ptr(), wk.data_ptr(), b.data_ptr(), out.data_ptr(),
-        bsz, c, t, cfg["tile"], cfg["halo"], cfg["margin"], DTYPES[x.dtype],
+        bsz, c, t, cfg["tile"], cfg["halo"], DTYPES[x.dtype],
         V._int_array(cfg["plan"]), len(cfg["plan"]), cfg["smem"],
     )
     assert rc == 0, (rc, lib.emu_fault())
@@ -150,7 +152,7 @@ def test_mrf_fused_bf16_refuses_a_layout_that_does_not_fit(emu):
     for tile, smem in ((112, V.mrf_smem_bytes_tc(128, 112, 45)), (96, V.mrf_smem_bytes_tc(128, 96, 45) - 16)):
         rc = emu.emu_mrf_fused(
             x.data_ptr(), lengths.data_ptr(), wk.data_ptr(), b.data_ptr(), out.data_ptr(),
-            3, 128, 200, tile, cfg["halo"], cfg["margin"], 1,
+            3, 128, 200, tile, cfg["halo"], 1,
             V._int_array(cfg["plan"]), len(cfg["plan"]), smem,
         )
         assert rc == -3, (tile, smem, rc)

@@ -137,8 +137,8 @@ def test_mrf_fused_bf16_refuses_more_output_tiles_than_the_warpgroups_hold(emu):
     plan = V.mrf_plan_ints(ks, ds, "2", w.shape[1])
     out, wk, lengths = torch.empty_like(x), V.tc_weight_layout(w), torch.tensor([500], dtype=torch.int32)
     rc = emu.emu_mrf_fused(
-        x.data_ptr(), lengths.data_ptr(), wk.data_ptr(), b.data_ptr(), out.data_ptr(), 1, 16, 500, 432, 45, 36,
-        1, V._int_array(plan), len(plan), V.mrf_smem_bytes_tc(16, 432, 45),
+        x.data_ptr(), lengths.data_ptr(), wk.data_ptr(), b.data_ptr(), out.data_ptr(), 1, 16, 500, 432, 45, 1,
+        V._int_array(plan), len(plan), V.mrf_smem_bytes_tc(16, 432, 45),
     )
     assert rc == -3
 
@@ -235,7 +235,7 @@ def test_mrf_fused_bf16_source_matches_pallas(emu):
     wk = V.tc_weight_layout(w)
     rc = emu.emu_mrf_fused(
         x.data_ptr(), lengths.data_ptr(), wk.data_ptr(), b.data_ptr(), out.data_ptr(),
-        3, c, t, cfg["tile"], cfg["halo"], cfg["margin"], 1, V._int_array(cfg["plan"]), len(cfg["plan"]),
+        3, c, t, cfg["tile"], cfg["halo"], 1, V._int_array(cfg["plan"]), len(cfg["plan"]),
         cfg["smem"],
     )
     assert rc == 0, (rc, emu.emu_fault())
